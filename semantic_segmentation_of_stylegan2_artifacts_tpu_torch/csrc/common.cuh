@@ -46,6 +46,41 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.0f + tanhf(u));
 }
 
+// Derivative of gelu_tanh (the JAX kernels' `_gelu_grad_f32`).
+__device__ __forceinline__ float gelu_tanh_grad(float x) {
+  const float x2 = x * x;
+  const float t = tanhf(0.7978845608028654f * (x + 0.044715f * x * x2));
+  const float du = 0.7978845608028654f * (1.0f + 3.0f * 0.044715f * x2);
+  return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * du;
+}
+
 constexpr float kLnEps = 1e-5f;
+
+// out[i] = sum_r part[r * stride + i] for i < L, summed in a fixed order
+// (the second pass of every cross-block reduction, so a result does not
+// change from run to run).  Block 32 x 32: 32 outputs, 32 row lanes.
+static __global__ void __launch_bounds__(1024)
+sum_rows_kernel(const float* __restrict__ part, float* __restrict__ out, int rows, int L,
+                long long stride) {
+  __shared__ float red[32][33];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int i = blockIdx.x * 32 + tx;
+  float acc = 0.0f;
+  if (i < L)
+    for (int r = ty; r < rows; r += 32) acc += part[(long long)r * stride + i];
+  red[ty][tx] = acc;
+  __syncthreads();
+  if (ty == 0 && i < L) {
+    float s = 0.0f;
+    for (int k = 0; k < 32; ++k) s += red[k][tx];
+    out[i] = s;
+  }
+}
+
+static cudaError_t sum_rows(const float* part, float* out, int rows, int L, long long stride,
+                            cudaStream_t st) {
+  sum_rows_kernel<<<(L + 31) / 32, dim3(32, 32), 0, st>>>(part, out, rows, L, stride);
+  return cudaGetLastError();
+}
 
 }  // namespace ssa

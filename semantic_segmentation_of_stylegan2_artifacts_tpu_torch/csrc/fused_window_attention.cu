@@ -278,6 +278,387 @@ static cudaError_t launch(const void* qkv, const void* bias, void* out, int B, i
   return cudaGetLastError();
 }
 
+// ===========================================================================
+// Backward.
+//
+// Replaces: the Pallas kernel `_bwd_kernel` (launcher `_bwd_pallas`) in
+// semantic_segmentation_of_stylegan2_artifacts_tpu/ops/fused_window_attention.py.
+//
+// Contract (as the TPU kernel): from the saved qkv and the context's
+// cotangent dctx (B, Hp, Wp, C) it recomputes P (scores scaled after q.k^T,
+// + bias, + shift mask, float32 softmax), forms dP = dctx.v^T and
+// dS = P*(dP - rowsum(dP*P)) in float32, sums the float32 dS into the bias
+// gradient, rounds dS to the storage type for dq = dS.k*scale and
+// dk = dS^T.q*scale, rounds P for dv = P^T.dctx, and writes dq/dk/dv in the
+// storage type to (B, Hp, Wp, 3C) at the tokens' own positions.
+//
+// Bound on the H100: memory.  Per token it reads 3C (qkv) + C (dctx) and
+// writes 3C values, ~7C against the forward's 4C; the five 49x49xhd
+// products (~1.5 MFLOP per window and head) stay far below the balance
+// point.  Design: the TPU grid summed the bias gradient in scratch across
+// its sequential grid; blocks here run in no order, so each block walks a
+// group of windows of one head, sums its dS in shared memory (each (i, j)
+// owned by one thread: no atomics) and writes one float32 partial; a
+// second launch (sum_rows) adds the partials in a fixed order, so dbias
+// is the same from run to run.  Grouping keeps the partials small (a
+// per-window partial would be ~110 MB at stage 0).  Padded rows and
+// columns (49 -> 64 tokens on the tensor-core path) are zero in P and dS,
+// so they add nothing to rowsum, dbias, dq, dk or dv.  bfloat16 runs the
+// five products as nvcuda::wmma tiles; float32 (and head widths that are
+// not a multiple of 16) on the CUDA cores.
+// ===========================================================================
+template <typename T>
+__global__ void window_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
+                                            const float* __restrict__ bias,
+                                            T* __restrict__ dqkv, float* __restrict__ part,
+                                            int B, int Hp, int Wp, int C, int heads, int wh,
+                                            int ww, int sh, int sw, int group, float scale) {
+  const int n = wh * ww;
+  const int hd = C / heads;
+  const int nwh = Hp / wh, nww = Wp / ww, nwin = nwh * nww;
+  const int h = blockIdx.y;
+  extern __shared__ float smem[];
+  float* qs = smem;                   // n x hd
+  float* ks = qs + n * hd;            // n x (hd + 1)
+  float* vs = ks + n * (hd + 1);      // n x (hd + 1)
+  float* dcs = vs + n * (hd + 1);     // n x hd
+  float* ps = dcs + n * hd;           // n x n: scores, then rounded probs
+  float* dss = ps + n * n;            // n x n: dP, then rounded dS
+  float* db = dss + n * n;            // n x n bias-gradient sum of the group
+  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) db[idx] = 0.0f;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  const bool masked = (sh | sw) != 0;
+  const long long c3 = 3LL * C;
+  for (int g = 0; g < group; ++g) {
+    const int gw = blockIdx.x * group + g;
+    if (gw >= B * nwin) break;
+    const int b = gw / nwin, win = gw - b * nwin;
+    const int wr = win / nww, wc = win % nww;
+    __syncthreads();  // the previous window is done with the tiles
+    for (int idx = threadIdx.x; idx < n * hd; idx += blockDim.x) {
+      const int t = idx / hd, d = idx - t * hd;
+      const long long tok = (long long)(b * Hp + wr * wh + t / ww) * Wp + wc * ww + t % ww;
+      const T* src = qkv + tok * c3 + h * hd + d;
+      qs[t * hd + d] = to_f(src[0]);
+      ks[t * (hd + 1) + d] = to_f(src[C]);
+      vs[t * (hd + 1) + d] = to_f(src[2 * C]);
+      dcs[t * hd + d] = to_f(dctx[tok * C + h * hd + d]);
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
+      const int i = idx / n, j = idx - i * n;
+      float s = 0.0f, dp = 0.0f;
+      for (int d = 0; d < hd; ++d) {
+        s += qs[i * hd + d] * ks[j * (hd + 1) + d];
+        dp += dcs[i * hd + d] * vs[j * (hd + 1) + d];
+      }
+      ps[idx] = s;
+      dss[idx] = dp;
+    }
+    __syncthreads();
+    for (int i = warp; i < n; i += nwarps) {
+      const int ri = wr * wh + i / ww, ci = wc * ww + i % ww;
+      const int gi = 3 * ((ri >= Hp - wh) + (ri >= Hp - sh)) + (ci >= Wp - ww) + (ci >= Wp - sw);
+      float s[2], dp[2], m = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = lane + 32 * u;
+        s[u] = -INFINITY;
+        dp[u] = 0.0f;
+        if (j < n) {
+          float x = ps[i * n + j] * scale + bias[(h * n + i) * n + j];
+          if (masked) {
+            const int rj = wr * wh + j / ww, cj = wc * ww + j % ww;
+            const int gj =
+                3 * ((rj >= Hp - wh) + (rj >= Hp - sh)) + (cj >= Wp - ww) + (cj >= Wp - sw);
+            x += (gi != gj) ? -100.0f : 0.0f;
+          }
+          s[u] = x;
+          dp[u] = dss[i * n + j];
+          m = fmaxf(m, x);
+        }
+      }
+      m = warp_max(m);
+      float e[2], sum = 0.0f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        e[u] = (lane + 32 * u < n) ? expf(s[u] - m) : 0.0f;
+        sum += e[u];
+      }
+      sum = warp_sum(sum);
+      float p[2], rs = 0.0f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        p[u] = e[u] / sum;
+        rs += p[u] * dp[u];
+      }
+      rs = warp_sum(rs);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = lane + 32 * u;
+        if (j < n) {
+          const float ds = p[u] * (dp[u] - rs);
+          db[i * n + j] += ds;
+          ps[i * n + j] = round_to<T>(p[u]);
+          dss[i * n + j] = round_to<T>(ds);
+        }
+      }
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < n * hd; idx += blockDim.x) {
+      const int t = idx / hd, d = idx - t * hd;
+      float dq = 0.0f, dk = 0.0f, dv = 0.0f;
+      for (int j = 0; j < n; ++j) {
+        dq += dss[t * n + j] * ks[j * (hd + 1) + d];
+        dk += dss[j * n + t] * qs[j * hd + d];
+        dv += ps[j * n + t] * dcs[j * hd + d];
+      }
+      const long long tok = (long long)(b * Hp + wr * wh + t / ww) * Wp + wc * ww + t % ww;
+      T* dst = dqkv + tok * c3 + h * hd + d;
+      dst[0] = from_f<T>(dq * scale);
+      dst[C] = from_f<T>(dk * scale);
+      dst[2 * C] = from_f<T>(dv);
+    }
+  }
+  __syncthreads();
+  float* out = part + ((long long)blockIdx.x * heads + h) * n * n;
+  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) out[idx] = db[idx];
+}
+
+// bfloat16 on the tensor cores: 4 warps, the window padded to 64 tokens,
+// warp w owns rows [16w, 16w+16) of every 64-row product.
+__global__ void __launch_bounds__(128)
+window_attention_bwd_wmma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                                 const __nv_bfloat16* __restrict__ dctx,
+                                 const float* __restrict__ bias,
+                                 __nv_bfloat16* __restrict__ dqkv, float* __restrict__ part,
+                                 int B, int Hp, int Wp, int C, int heads, int wh, int ww,
+                                 int sh, int sw, int group, float scale) {
+  using namespace nvcuda;
+  using bf16 = __nv_bfloat16;
+  constexpr int R = kRowsPad;
+  const int n = wh * ww;
+  const int hd = C / heads;
+  const int nwh = Hp / wh, nww = Wp / ww, nwin = nwh * nww;
+  const int h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* ss = reinterpret_cast<float*>(smem_raw);  // [64][64] scores
+  float* dps = ss + R * R;                          // [64][64] dP
+  float* os = dps + R * R;                          // [3][64][hd] dq, dk, dv
+  float* db = os + 3 * R * hd;                      // [n][n] bias-gradient sum
+  bf16* qs = reinterpret_cast<bf16*>(db + ((n * n + 31) & ~31));  // [64][hd]
+  bf16* ks = qs + R * hd;
+  bf16* vs = ks + R * hd;
+  bf16* dcs = vs + R * hd;
+  bf16* ps = dcs + R * hd;  // [64][64] rounded probs
+  bf16* dss = ps + R * R;   // [64][64] rounded dS
+  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) db[idx] = 0.0f;
+
+  const bool masked = (sh | sw) != 0;
+  const long long c3 = 3LL * C;
+  const int vec = hd / 8;  // 16-byte chunks per row
+  for (int g = 0; g < group; ++g) {
+    const int gw = blockIdx.x * group + g;
+    if (gw >= B * nwin) break;
+    const int b = gw / nwin, win = gw - b * nwin;
+    const int wr = win / nww, wc = win % nww;
+    __syncthreads();  // the previous window is done with every tile
+    for (int e = threadIdx.x; e < R * vec; e += blockDim.x) {
+      const int t = e / vec, q = e - t * vec;
+      uint4 z = make_uint4(0u, 0u, 0u, 0u), qv = z, kv = z, vv = z, dv = z;
+      if (t < n) {
+        const long long tok = (long long)(b * Hp + wr * wh + t / ww) * Wp + wc * ww + t % ww;
+        const bf16* src = qkv + tok * c3 + h * hd + q * 8;
+        qv = *reinterpret_cast<const uint4*>(src);
+        kv = *reinterpret_cast<const uint4*>(src + C);
+        vv = *reinterpret_cast<const uint4*>(src + 2 * C);
+        dv = *reinterpret_cast<const uint4*>(dctx + tok * C + h * hd + q * 8);
+      }
+      reinterpret_cast<uint4*>(qs)[e] = qv;
+      reinterpret_cast<uint4*>(ks)[e] = kv;
+      reinterpret_cast<uint4*>(vs)[e] = vv;
+      reinterpret_cast<uint4*>(dcs)[e] = dv;
+    }
+    __syncthreads();
+
+    {  // S = Q.K^T and dP = dC.V^T
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> as[4], ad[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wmma::fill_fragment(as[j], 0.0f);
+        wmma::fill_fragment(ad[j], 0.0f);
+      }
+      for (int k0 = 0; k0 < hd; k0 += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> aq, ac;
+        wmma::load_matrix_sync(aq, qs + warp * 16 * hd + k0, hd);
+        wmma::load_matrix_sync(ac, dcs + warp * 16 * hd + k0, hd);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk, bv;
+          wmma::load_matrix_sync(bk, ks + j * 16 * hd + k0, hd);
+          wmma::load_matrix_sync(bv, vs + j * 16 * hd + k0, hd);
+          wmma::mma_sync(as[j], aq, bk, as[j]);
+          wmma::mma_sync(ad[j], ac, bv, ad[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wmma::store_matrix_sync(ss + warp * 16 * R + j * 16, as[j], R, wmma::mem_row_major);
+        wmma::store_matrix_sync(dps + warp * 16 * R + j * 16, ad[j], R, wmma::mem_row_major);
+      }
+    }
+    __syncthreads();
+
+    for (int i = warp; i < R; i += 4) {
+      if (i >= n) {
+        for (int j = lane; j < R; j += 32) {
+          ps[i * R + j] = from_f<bf16>(0.0f);
+          dss[i * R + j] = from_f<bf16>(0.0f);
+        }
+        continue;
+      }
+      const int ri = wr * wh + i / ww, ci = wc * ww + i % ww;
+      const int gi = 3 * ((ri >= Hp - wh) + (ri >= Hp - sh)) + (ci >= Wp - ww) + (ci >= Wp - sw);
+      float s[2], dp[2], m = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = lane + 32 * u;
+        s[u] = -INFINITY;
+        dp[u] = 0.0f;
+        if (j < n) {
+          float x = ss[i * R + j] * scale + bias[(h * n + i) * n + j];
+          if (masked) {
+            const int rj = wr * wh + j / ww, cj = wc * ww + j % ww;
+            const int gj =
+                3 * ((rj >= Hp - wh) + (rj >= Hp - sh)) + (cj >= Wp - ww) + (cj >= Wp - sw);
+            x += (gi != gj) ? -100.0f : 0.0f;
+          }
+          s[u] = x;
+          dp[u] = dps[i * R + j];
+          m = fmaxf(m, x);
+        }
+      }
+      m = warp_max(m);
+      float e[2], sum = 0.0f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        e[u] = (lane + 32 * u < n) ? expf(s[u] - m) : 0.0f;
+        sum += e[u];
+      }
+      sum = warp_sum(sum);
+      float p[2], rs = 0.0f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        p[u] = e[u] / sum;
+        rs += p[u] * dp[u];
+      }
+      rs = warp_sum(rs);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = lane + 32 * u;
+        const float ds = p[u] * (dp[u] - rs);  // 0 for j >= n (p = 0)
+        if (j < n) db[i * n + j] += ds;
+        ps[i * R + j] = from_f<bf16>(p[u]);
+        dss[i * R + j] = from_f<bf16>(ds);
+      }
+    }
+    __syncthreads();
+
+    // dq = dS.K, dk = dS^T.Q, dv = P^T.dC: warp owns output rows [16w, 16w+16)
+    for (int d0 = 0; d0 < hd; d0 += 16) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> aq, ak, av;
+      wmma::fill_fragment(aq, 0.0f);
+      wmma::fill_fragment(ak, 0.0f);
+      wmma::fill_fragment(av, 0.0f);
+#pragma unroll
+      for (int k0 = 0; k0 < R; k0 += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a_ds;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a_dst, a_pt;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bk, bq, bc;
+        wmma::load_matrix_sync(a_ds, dss + warp * 16 * R + k0, R);
+        wmma::load_matrix_sync(a_dst, dss + k0 * R + warp * 16, R);
+        wmma::load_matrix_sync(a_pt, ps + k0 * R + warp * 16, R);
+        wmma::load_matrix_sync(bk, ks + k0 * hd + d0, hd);
+        wmma::load_matrix_sync(bq, qs + k0 * hd + d0, hd);
+        wmma::load_matrix_sync(bc, dcs + k0 * hd + d0, hd);
+        wmma::mma_sync(aq, a_ds, bk, aq);
+        wmma::mma_sync(ak, a_dst, bq, ak);
+        wmma::mma_sync(av, a_pt, bc, av);
+      }
+      wmma::store_matrix_sync(os + warp * 16 * hd + d0, aq, hd, wmma::mem_row_major);
+      wmma::store_matrix_sync(os + R * hd + warp * 16 * hd + d0, ak, hd, wmma::mem_row_major);
+      wmma::store_matrix_sync(os + 2 * R * hd + warp * 16 * hd + d0, av, hd,
+                              wmma::mem_row_major);
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < n * hd; idx += blockDim.x) {
+      const int t = idx / hd, d = idx - t * hd;
+      const long long tok = (long long)(b * Hp + wr * wh + t / ww) * Wp + wc * ww + t % ww;
+      bf16* dst = dqkv + tok * c3 + h * hd + d;
+      dst[0] = from_f<bf16>(os[t * hd + d] * scale);
+      dst[C] = from_f<bf16>(os[R * hd + t * hd + d] * scale);
+      dst[2 * C] = from_f<bf16>(os[2 * R * hd + t * hd + d]);
+    }
+  }
+  __syncthreads();
+  float* out = part + ((long long)blockIdx.x * heads + h) * n * n;
+  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) out[idx] = db[idx];
+}
+
+static cudaError_t launch_bwd(const void* qkv, const void* dctx, const void* bias, void* dqkv,
+                             void* part, void* dbias, int B, int Hp, int Wp, int C, int heads,
+                             int wh, int ww, int sh, int sw, int group, int dtype,
+                             cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  const int n = wh * ww, hd = C / heads;
+  const int nblk = (B * (Hp / wh) * (Wp / ww) + group - 1) / group;
+  const float scale = (float)pow((double)hd, -0.5);
+  const dim3 grid(nblk, heads);
+  cudaError_t e;
+  if (dtype == kBF16 && hd % 16 == 0 && n <= kRowsPad) {
+    const int R = kRowsPad;
+    const size_t smem = sizeof(float) * (size_t)(2 * R * R + 3 * R * hd + ((n * n + 31) & ~31)) +
+                        sizeof(bf16) * (size_t)(4 * R * hd + 2 * R * R);
+    if ((e = cudaFuncSetAttribute(window_attention_bwd_wmma_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+        cudaSuccess)
+      return e;
+    window_attention_bwd_wmma_kernel<<<grid, 128, smem, st>>>(
+        static_cast<const bf16*>(qkv), static_cast<const bf16*>(dctx),
+        static_cast<const float*>(bias), static_cast<bf16*>(dqkv), static_cast<float*>(part), B,
+        Hp, Wp, C, heads, wh, ww, sh, sw, group, scale);
+  } else {
+    const size_t smem = sizeof(float) * (size_t)(2 * n * hd + 2 * n * (hd + 1) + 3 * n * n);
+    if (dtype == kBF16) {
+      auto kern = window_attention_bwd_kernel<bf16>;
+      if ((e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess)
+        return e;
+      kern<<<grid, 128, smem, st>>>(static_cast<const bf16*>(qkv),
+                                    static_cast<const bf16*>(dctx),
+                                    static_cast<const float*>(bias), static_cast<bf16*>(dqkv),
+                                    static_cast<float*>(part), B, Hp, Wp, C, heads, wh, ww, sh,
+                                    sw, group, scale);
+    } else {
+      auto kern = window_attention_bwd_kernel<float>;
+      if ((e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess)
+        return e;
+      kern<<<grid, 128, smem, st>>>(static_cast<const float*>(qkv),
+                                    static_cast<const float*>(dctx),
+                                    static_cast<const float*>(bias), static_cast<float*>(dqkv),
+                                    static_cast<float*>(part), B, Hp, Wp, C, heads, wh, ww, sh,
+                                    sw, group, scale);
+    }
+  }
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return sum_rows(static_cast<const float*>(part), static_cast<float*>(dbias), nblk,
+                  heads * n * n, (long long)heads * n * n, st);
+}
+
 }  // namespace ssa
 
 extern "C" int ssa_window_attention_fwd(const void* qkv, const void* bias, void* out, int B,
@@ -291,4 +672,15 @@ extern "C" int ssa_window_attention_fwd(const void* qkv, const void* bias, void*
     return (int)ssa::launch<__nv_bfloat16>(qkv, bias, out, B, Hp, Wp, C, heads, wh, ww, sh, sw,
                                            st);
   return (int)ssa::launch<float>(qkv, bias, out, B, Hp, Wp, C, heads, wh, ww, sh, sw, st);
+}
+
+// qkv/dqkv (B,Hp,Wp,3C), dctx (B,Hp,Wp,C) in the storage type; bias and
+// dbias (heads,N,N) float32; part (ceil(B*nW/group), heads, N, N) float32
+// scratch for the per-block bias-gradient partials.
+extern "C" int ssa_window_attention_bwd(const void* qkv, const void* dctx, const void* bias,
+                                        void* dqkv, void* part, void* dbias, int B, int Hp,
+                                        int Wp, int C, int heads, int wh, int ww, int sh, int sw,
+                                        int group, int dtype, void* stream) {
+  return (int)ssa::launch_bwd(qkv, dctx, bias, dqkv, part, dbias, B, Hp, Wp, C, heads, wh, ww,
+                              sh, sw, group, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -8,23 +8,48 @@ reference ``best_model.pth`` loads with ``strict=True``.
 
 Compute-dtype policy as in the JAX package: parameters stay float32, and
 each module computes in ``dtype`` (bfloat16 on the deployment path) with
-its weights cast on use; LayerNorm statistics run in float32.  The
-modules implement the deterministic (inference) forward: dropout and
-stochastic depth are training features and are not ported yet.
+its weights cast on use; LayerNorm statistics run in float32.
+
+Training features as in the JAX package, on in ``train()`` mode (which
+takes the place of JAX's ``deterministic=False``): per-sample ("row")
+stochastic depth on both residuals of a Swin block, MLP dropout,
+attention-probability and projection dropout (which put attention on the
+composed path, as JAX ``models/layers.py:257-262`` does).  Their noise
+comes from the ``torch.Generator`` set with :func:`noise_generator`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Iterator, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import fused_patch, fused_refine_head, fused_window_attention, patch_ops
-from ..ops.window_attention import shifted_window_attention
+from ..ops.window_attention import dropout_keep, keep_mask, shifted_window_attention
 
 LN_EPS = 1e-5
+_GENERATOR: list = [None]
+
+
+@contextlib.contextmanager
+def noise_generator(generator: Optional[torch.Generator]) -> Iterator[None]:
+    """Draw the dropout and stochastic-depth noise of the forwards run in
+    this block from ``generator`` (on the activations' device)."""
+    prev, _GENERATOR[0] = _GENERATOR[0], generator
+    try:
+        yield
+    finally:
+        _GENERATOR[0] = prev
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    """flax ``nn.Dropout`` with ``deterministic = not training``."""
+    if not training or rate == 0.0:
+        return x
+    return dropout_keep(x, rate, _GENERATOR[0])
 
 
 def gelu(x: torch.Tensor, tanh: bool) -> torch.Tensor:
@@ -66,31 +91,55 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.dtype)
 
 
+class StochasticDepth(nn.Module):
+    """torchvision ``StochasticDepth(p, "row")``: in training, each sample's
+    residual branch is kept with probability ``1-p`` and scaled by
+    ``1/(1-p)`` in the branch's dtype (JAX ``models/layers.py:120-135``)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        return x * keep_mask(shape, keep, _GENERATOR[0], x.device).to(x.dtype) / keep
+
+
 class Mlp(nn.Sequential):
     """Linear -> GELU -> Dropout -> Linear -> Dropout (keys ``mlp.0``/``mlp.3``)."""
 
-    def __init__(self, dim: int, hidden: int, gelu_tanh: bool, dtype: torch.dtype):
-        super().__init__(nn.Linear(dim, hidden), nn.GELU(), nn.Dropout(0.0),
-                         nn.Linear(hidden, dim), nn.Dropout(0.0))
+    def __init__(self, dim: int, hidden: int, gelu_tanh: bool, dtype: torch.dtype,
+                 drop: float = 0.0):
+        super().__init__(nn.Linear(dim, hidden), nn.GELU(), nn.Dropout(drop),
+                         nn.Linear(hidden, dim), nn.Dropout(drop))
         self.gelu_tanh = gelu_tanh
+        self.drop = float(drop)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = gelu(linear(x, self[0], self.dtype), self.gelu_tanh)
-        return linear(x, self[3], self.dtype)
+        x = dropout(x, self.drop, self.training)
+        return dropout(linear(x, self[3], self.dtype), self.drop, self.training)
 
 
 class WindowAttention(nn.Module):
     """Windowed MHSA over an NHWC map; owns qkv/proj/bias-table params.
 
-    ``fused``: the window-shaped middle runs in the CUDA kernel
-    (``TPU.USE_PALLAS_ATTENTION``); otherwise the composed op."""
+    ``fused``: the window-shaped middle runs in the CUDA kernels
+    (``TPU.USE_PALLAS_ATTENTION``) unless a dropout is active in training,
+    which the composed op takes (JAX ``models/layers.py:233-262``)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
                  qkv_bias: bool = True, fused: bool = False,
                  softmax_dtype: torch.dtype = torch.float32,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attention_dropout: float = 0.0, dropout: float = 0.0):
         super().__init__()
+        self.attention_dropout = float(attention_dropout)
+        self.dropout = float(dropout)
         self.num_heads = num_heads
         self.window_size = (window_size, window_size)
         self.shift_size = (shift_size, shift_size)
@@ -107,28 +156,36 @@ class WindowAttention(nn.Module):
                 self.proj.bias, self.relative_position_bias_table)
         kw = dict(window_size=self.window_size, shift_size=self.shift_size,
                   num_heads=self.num_heads)
-        if self.fused:
+        noisy = self.training and (self.attention_dropout > 0.0 or self.dropout > 0.0)
+        if self.fused and not noisy:
             return fused_window_attention.fused_shifted_window_attention(*args, **kw)
+        if noisy:
+            kw.update(attention_dropout=self.attention_dropout, dropout=self.dropout,
+                      generator=_GENERATOR[0])
         return shifted_window_attention(*args, softmax_dtype=self.softmax_dtype, **kw)
 
 
 class SwinBlock(nn.Module):
-    """``x = x + attn(norm1(x)); x = x + mlp(norm2(x))`` (torchvision contract)."""
+    """``x = x + sd(attn(norm1(x))); x = x + sd(mlp(norm2(x)))``
+    (torchvision contract; ``sd`` is stochastic depth at ``drop_path``)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift: bool,
                  mlp_ratio: float, qkv_bias: bool, fused_attention: bool,
-                 gelu_tanh: bool, softmax_dtype: torch.dtype, dtype: torch.dtype):
+                 gelu_tanh: bool, softmax_dtype: torch.dtype, dtype: torch.dtype,
+                 drop: float = 0.0, attn_drop: float = 0.0, drop_path: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(dim, dtype)
         self.attn = WindowAttention(dim, num_heads, window_size,
                                     window_size // 2 if shift else 0, qkv_bias,
-                                    fused_attention, softmax_dtype, dtype)
+                                    fused_attention, softmax_dtype, dtype,
+                                    attention_dropout=attn_drop, dropout=drop)
+        self.stochastic_depth = StochasticDepth(drop_path)
         self.norm2 = LayerNorm(dim, dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu_tanh, dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu_tanh, dtype, drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        x = x + self.stochastic_depth(self.attn(self.norm1(x)))
+        return x + self.stochastic_depth(self.mlp(self.norm2(x)))
 
 
 class PatchEmbed(nn.Module):
@@ -221,11 +278,14 @@ class FinalPatchExpandX4V2(nn.Module):
 class _Stage(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float, qkv_bias: bool, fused_attention: bool,
-                 gelu_tanh: bool, softmax_dtype: torch.dtype, dtype: torch.dtype):
+                 gelu_tanh: bool, softmax_dtype: torch.dtype, dtype: torch.dtype,
+                 drop: float = 0.0, attn_drop: float = 0.0,
+                 drop_path: Sequence[float] = ()):
         super().__init__()
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size, i % 2 == 1, mlp_ratio, qkv_bias,
-                      fused_attention, gelu_tanh, softmax_dtype, dtype)
+                      fused_attention, gelu_tanh, softmax_dtype, dtype, drop, attn_drop,
+                      drop_path[i] if len(drop_path) else 0.0)
             for i in range(depth))
 
     def run_blocks(self, x: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,10 @@ Counterpart of the JAX package's ``models/msunet.py`` (reference
 * shared ``concat_back_dim`` skip-reduction Linears,
 * the ``FinalPatchExpand_X4_V2`` head and a bias-free 1x1 output conv.
 
-NHWC end to end; returns logits ``(B, H, W, classes)``.
+NHWC end to end; returns logits ``(B, H, W, classes)``.  Stochastic depth
+decays linearly 0 -> ``DROP_PATH_RATE`` over the encoder blocks; decoder
+and cent stages reuse the rates of their mirrored encoder stage, as in
+the reference.  ``train()`` mode turns on dropout and stochastic depth.
 
 What differs from the JAX package on purpose:
 
@@ -24,8 +27,8 @@ What differs from the JAX package on purpose:
 * ``TPU.SPATIAL_AXIS``, ``TPU.MODEL_AXIS``, a recomputation policy
   (``TPU.REMAT`` full/dots/high_res, ``TRAIN.USE_CHECKPOINT``) and a
   device mesh are not ported yet and raise ``NotImplementedError``.
-  ``TPU.REMAT: auto`` is accepted: recomputation only matters for a
-  backward pass, and the port runs inference only.
+  ``TPU.REMAT: auto`` (and ``none``) are accepted and recompute nothing:
+  every activation of the backward pass is kept.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from __future__ import annotations
 import math
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -44,8 +48,19 @@ from .layers import (
     LayerNorm,
     PatchEmbed,
     PatchExpand,
+    dropout,
     linear,
 )
+
+
+def _dpr(drop_path_rate: float, depths: Sequence[int]) -> List[float]:
+    """Linear stochastic-depth decay over all encoder blocks."""
+    return [float(r) for r in np.linspace(0.0, drop_path_rate, sum(depths))]
+
+
+def _stage_slice(dpr: List[float], depths: Sequence[int], stage: int) -> List[float]:
+    lo = sum(depths[:stage])
+    return dpr[lo:lo + depths[stage]]
 
 
 class MSUNetSys(nn.Module):
@@ -59,20 +74,25 @@ class MSUNetSys(nn.Module):
                  fused_attention: bool = False, fused_patch: bool = False,
                  fused_head: bool = False, gelu_tanh: bool = False,
                  softmax_dtype: torch.dtype = torch.float32,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.1):
         super().__init__()
         self.img_size = img_size
         self.depths = tuple(depths)
         nl = len(depths)
         dims = [embed_dim * 2 ** i for i in range(nl)]
+        dpr = _dpr(drop_path_rate, depths)
         common = dict(window_size=window_size, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                       fused_attention=fused_attention, fused_patch=fused_patch,
-                      gelu_tanh=gelu_tanh, softmax_dtype=softmax_dtype, dtype=dtype)
+                      gelu_tanh=gelu_tanh, softmax_dtype=softmax_dtype, dtype=dtype,
+                      drop=drop_rate, attn_drop=attn_drop_rate)
         self.dtype = dtype
+        self.drop_rate = float(drop_rate)
 
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim, patch_norm, dtype)
         self.layers = nn.ModuleList(
-            BasicLayer(dims[i], depths[i], num_heads[i], downsample=i < nl - 1, **common)
+            BasicLayer(dims[i], depths[i], num_heads[i], downsample=i < nl - 1,
+                       drop_path=_stage_slice(dpr, depths, i), **common)
             for i in range(nl))
         # concat_back_dim[i]: Linear(2*dims[nl-1-i] -> dims[nl-1-i]); [0] unused
         self.concat_back_dim = nn.ModuleList(
@@ -84,7 +104,9 @@ class MSUNetSys(nn.Module):
             for i in range(1, n_stages):
                 s = first - i  # mirrored encoder stage (encoder depths reused)
                 stages.append(BasicLayerUp(dims[s], depths[s], num_heads[s],
-                                           upsample=i < n_stages - 1, **common))
+                                           upsample=i < n_stages - 1,
+                                           drop_path=_stage_slice(dpr, depths, s),
+                                           **common))
             return nn.ModuleList(stages)
 
         self.layers_up = decoder(nl - 1, nl)
@@ -100,7 +122,7 @@ class MSUNetSys(nn.Module):
         return linear(x, self.concat_back_dim[i], self.dtype)
 
     def forward_features(self, x: torch.Tensor):
-        x = self.patch_embed(x)
+        x = dropout(self.patch_embed(x), self.drop_rate, self.training)  # pos_drop
         skips: List[torch.Tensor] = []
         for i_layer, layer in enumerate(self.layers):
             if i_layer == 1:  # cent decoder 2 rewrites skip 0 (reference :785-795)
@@ -192,8 +214,9 @@ class MSUNet(nn.Module):
     @classmethod
     def from_config(cls, config, img_size: Optional[int] = None,
                     dtype: Optional[torch.dtype] = None, device=None) -> "MSUNet":
-        """Build from a config (reference schema) with weights seeded from
-        ``SEED``, in eval mode, on ``device`` (the card unless the caller
+        """Build from a config (reference schema, the drop rates of
+        ``MODEL`` included) with weights seeded from ``SEED``, in eval
+        mode, on ``device`` (the card unless the caller
         passes another; raises with no GPU)."""
         dev = resolve_device(device)
         tpu = config.TPU
@@ -225,6 +248,9 @@ class MSUNet(nn.Module):
             gelu_tanh=bool(getattr(tpu, "GELU_TANH", False)),
             softmax_dtype=compute_dtype(tpu.SOFTMAX_DTYPE),
             dtype=dtype or compute_dtype(tpu.COMPUTE_DTYPE),
+            drop_rate=float(config.MODEL.DROP_RATE),
+            attn_drop_rate=float(config.MODEL.ATTN_DROP_RATE),
+            drop_path_rate=float(config.MODEL.DROP_PATH_RATE),
         )
         init_weights(model, int(config.SEED))
         return model.to(dev).eval()

@@ -7,8 +7,9 @@ load with ``ctypes``.  Nothing here runs at import time: the CPU tests
 import every module of the port on a machine with no ``nvcc``.
 
 Each wrapper counts its launches in :data:`LAUNCHES`, one per call that
-launches its kernel, so a run can show that its main path went through
-the kernels.
+launches its kernel (a call that runs several CUDA launches, such as the
+refine head's convs and reductions, counts once), so a run can show that
+its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -32,18 +33,23 @@ _LIB_NAME = "libssa_kernels.so"
 
 LAUNCHES = {
     "window_attention": 0,
+    "window_attention_bwd": 0,
     "patch_merge": 0,
     "patch_expand": 0,
     "refine_head": 0,
+    "refine_head_res": 0,
+    "refine_head_bwd": 0,
 }
 
 # C entry points: (name, number of pointer args, number of int args); every
 # function ends with (int dtype, void* stream) and returns cudaError_t.
 _SIGNATURES = {
     "ssa_window_attention_fwd": (3, 9),
+    "ssa_window_attention_bwd": (6, 10),
     "ssa_patch_merge_fwd": (5, 4),
     "ssa_patch_expand_fwd": (5, 4),
-    "ssa_refine_head_fwd": (9, 3),
+    "ssa_refine_head_fwd": (11, 3),
+    "ssa_refine_head_bwd": (20, 4),
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -152,11 +158,12 @@ def dtype_code(dtype: torch.dtype) -> int:
 
 
 def launch(counter: str, fn: str, tensors, ints, dtype: torch.dtype) -> None:
-    """Call one C entry point on the current stream; raise on a CUDA error."""
+    """Call one C entry point on the current stream; raise on a CUDA error.
+    A ``None`` in ``tensors`` passes a null pointer (an optional output)."""
     stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
     rc = getattr(library(), fn)(
-        *[t.data_ptr() for t in tensors], *[int(i) for i in ints],
-        dtype_code(dtype), stream)
+        *[None if t is None else t.data_ptr() for t in tensors],
+        *[int(i) for i in ints], dtype_code(dtype), stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA error {rc}")
     LAUNCHES[counter] += 1

@@ -9,6 +9,11 @@ both bias-free, LayerNorm with float32 fast-variance stats clamped at 0
 numerics (merge: the LN output is rounded to the input dtype before the
 product; expand: the product is rounded to the input dtype before the
 LN) and run for CPU tensors only.
+
+The backward kernels (JAX ``_merge_bwd_kernel``/``_expand_bwd_kernel``)
+are not ported yet: on the card, a call that autograd would record
+raises instead of returning an output with no gradient.  Training runs
+with ``TPU.FUSED_PATCH: false`` (the composed ops under autograd).
 """
 
 from __future__ import annotations
@@ -43,6 +48,13 @@ def patch_expand_reference(x, weight, ln_scale, ln_bias):
     return _ln_f32(depth_to_space(z, 2), ln_scale, ln_bias).to(dt)
 
 
+def _no_grad_guard(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} kernel has no backward yet (the patch backward kernels come "
+            "in slice 3 of the port); train with TPU.FUSED_PATCH: false")
+
+
 def merge_supported(shape) -> bool:
     _, h, w, c = shape
     return h % 2 == 0 and w % 2 == 0 and c % 16 == 0
@@ -61,6 +73,7 @@ def fused_patch_merge(x: torch.Tensor, ln_scale: torch.Tensor,
     b, h, w, c = x.shape
     if not merge_supported(x.shape):
         raise ValueError(f"patch merge kernel: unsupported shape {tuple(x.shape)}")
+    _no_grad_guard("patch merge", x, ln_scale, ln_bias, weight)
     dt = x.dtype
     _build.check_cuda(x, "x")
     wk = weight.to(dt).t().contiguous()  # (4C, 2C), input-major
@@ -83,6 +96,7 @@ def fused_patch_expand(x: torch.Tensor, weight: torch.Tensor,
     b, h, w, c = x.shape
     if not expand_supported(x.shape):
         raise ValueError(f"patch expand kernel: unsupported shape {tuple(x.shape)}")
+    _no_grad_guard("patch expand", x, weight, ln_scale, ln_bias)
     dt = x.dtype
     _build.check_cuda(x, "x")
     wk = weight.to(dt).t().contiguous()  # (C, 2C), input-major

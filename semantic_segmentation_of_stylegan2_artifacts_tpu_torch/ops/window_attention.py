@@ -9,8 +9,8 @@ queries are scaled by ``head_dim**-0.5``, the relative-position bias is
 gathered from a ``(2w-1)^2 x heads`` table, shifted blocks add the 0/-100
 nine-region mask, softmax runs in ``softmax_dtype``, then ``.v``, proj,
 reverse and unroll.  This is the path the port takes with
-``TPU.USE_PALLAS_ATTENTION`` off; ``ops/fused_window_attention.py`` holds
-the kernel path.
+``TPU.USE_PALLAS_ATTENTION`` off, and the one attention dropout takes in
+training; ``ops/fused_window_attention.py`` holds the kernel path.
 """
 
 from __future__ import annotations
@@ -105,6 +105,23 @@ def unroll_and_crop(x: torch.Tensor, h: int, w: int, sh: int, sw: int) -> torch.
     return x[:, :h, :w, :]
 
 
+def keep_mask(shape, keep: float, generator: Optional[torch.Generator],
+              device) -> torch.Tensor:
+    """Boolean draws, True with probability ``keep``, from ``generator``."""
+    if generator is None:
+        raise ValueError("dropout and stochastic depth in training need a torch.Generator")
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+def dropout_keep(x: torch.Tensor, rate: float,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability ``1-rate``
+    and scale it by ``1/(1-rate)``; zero the rest."""
+    keep = 1.0 - rate
+    mask = keep_mask(x.shape, keep, generator, x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def shifted_window_attention(
     x: torch.Tensor,
     qkv_weight: torch.Tensor,
@@ -117,10 +134,17 @@ def shifted_window_attention(
     shift_size: Tuple[int, int],
     num_heads: int,
     softmax_dtype: torch.dtype = torch.float32,
+    attention_dropout: float = 0.0,
+    dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Shifted-window MHSA on ``(B, H, W, C)`` (already normed), computed
-    in ``x.dtype``; weights in torch layout ``(out, in)``.  Deterministic
-    (no dropout): the port runs inference only."""
+    in ``x.dtype``; weights in torch layout ``(out, in)``.
+
+    ``attention_dropout`` drops softmax probabilities and ``dropout`` the
+    projection output (JAX ``ops/window_attention.py:293-299, 467-472``),
+    each keep scaled by ``1/(1-rate)``, with noise drawn from
+    ``generator``; callers pass rates of 0 outside training."""
     b, h, w, c = x.shape
     wh, ww = window_size
     hp, wp, sh, sw = effective_shift(h, w, window_size, shift_size)
@@ -142,8 +166,12 @@ def shifted_window_attention(
                                device=x.device)
         attn = attn + mask[None, :, None].to(softmax_dtype)
     attn = torch.softmax(attn, dim=-1)
+    if attention_dropout > 0.0:
+        attn = dropout_keep(attn, attention_dropout, generator)
     out = torch.matmul(attn.to(dt), v)
     out = out.permute(0, 1, 3, 2, 4).reshape(b, nw, n, c)
     out = F.linear(out, proj_weight.to(dt),
                    None if proj_bias is None else proj_bias.to(dt))
+    if dropout > 0.0:
+        out = dropout_keep(out, dropout, generator)
     return unroll_and_crop(window_reverse(out, hp, wp, wh, ww), h, w, sh, sw)

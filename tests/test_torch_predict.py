@@ -8,8 +8,8 @@
 * The predict CLI over a ``data/synthetic.py`` dataset writes the same
   file names as the JAX CLI from the same ``.pth`` checkpoint.
 * With no CUDA and no ``device="cpu"`` the entry points raise.
-* Importing the port and running a CPU forward, in a fresh process,
-  loads neither jax, flax nor the JAX package.
+* Importing the port and running a CPU forward and a CPU train step, in
+  a fresh process, loads neither jax, flax nor the JAX package.
 """
 
 import logging
@@ -133,6 +133,13 @@ m = MSUNet(img_size=32, embed_dim=128, depths=(1, 1, 1, 1), num_heads=(2, 2, 4, 
            gelu_tanh=True)
 p = make_predict_step(m, device="cpu")(np.zeros((1, 32, 32, 3), np.uint8))
 assert p.shape == (1, 32, 32)
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.core.config import default_config
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train.state import (
+    create_train_state, make_train_step)
+loss = make_train_step(m, 0.2, 0.8, 0.45)(
+    create_train_state(m, default_config(), device="cpu"),
+    np.zeros((1, 32, 32, 3), np.uint8), np.ones((1, 32, 32), np.uint8), 1e-4)
+assert bool(torch.isfinite(loss))
 jax_pkg = "semantic_segmentation_of_stylegan2_artifacts_tpu"
 bad = [n for n in sys.modules if n in ("jax", "flax") or n.startswith(("jax.", "flax."))
        or n == jax_pkg or n.startswith(jax_pkg + ".")]
