@@ -6,32 +6,41 @@
 Builds the port's CUDA kernels from ``csrc/`` and then, in order:
 
 1. prints the card's name and power limit and the build time;
-2. checks each kernel against its plain PyTorch version at the shapes the
-   512^2 batch-8 predict path gives it, in float32 and in bfloat16, each
-   error beside its stated tolerance, and times kernel, plain version and
-   (for attention) one ``scaled_dot_product_attention`` call;
+2. checks each forward kernel against its plain PyTorch version at the
+   shapes the 512^2 batch-8 predict paths give it (Swin-B, and Swin-T
+   where its widths differ: attention at 3/6/12/24 heads, merge at
+   C = 96, expand at C/2 = 96/192/384, the GELU+depth-to-space head at
+   C = 96), in float32 and in bfloat16, each error beside its stated
+   tolerance, and times kernel, plain version and (for attention) one
+   ``scaled_dot_product_attention`` call;
 3. drives the predict path of the full Swin-B MS-UNet (512^2, batch 8,
-   bfloat16, all three kernel knobs on, seeded weights) through
+   bfloat16, all kernel knobs on, seeded weights) through
    ``make_predict_step`` with the launch counts zeroed just before and
    read just after, then times it, and runs ``artifact_prediction`` and a
    1024^2 ``tiled_predict``;
 4. holds the kernel path's float32 logits against the composed path
    (knobs off) at 512^2, batch 2;
 5. checks the training kernels (attention backward, refine-head training
-   forward and backward) against their plain versions at the shapes of the
-   512^2 batch-8 train step, in float32 and bfloat16, and the plain
+   forward and backward, patch merge and expand backwards, the
+   GELU+depth-to-space backward) against their plain versions at the
+   shapes of the 512^2 batch-8 train steps, in float32 and bfloat16 (a
+   repeated patch backward must give the same bits), and the plain
    backwards against ``torch.autograd`` of the plain forwards, and times
    kernel, plain version and yardstick;
-6. drives the train step of the full Swin-B MS-UNet (bench.py's
-   configuration: 512^2, batch 8, bf16 compute, f32 params, attention and
-   head kernels on, FUSED_PATCH off, drop-path 0.1) through
+6. drives the train step of the full Swin-B MS-UNet with every
+   ``config.yaml`` knob on (bench.py's step: 512^2, batch 8, bf16 compute,
+   f32 params, attention, head and patch kernels, drop-path 0.1) through
    ``make_train_step`` with the launch counts zeroed just before one step
    and read just after, times ten steps on a fixed batch (the loss must
-   fall) and profiles one;
+   fall) and profiles one; then the same with ``FUSED_PATCH`` off;
 7. holds one float32 train step on the kernel path against the composed
-   path (loss and every parameter's gradient) at 512^2, batch 2, and
-   checks that a train step with FUSED_PATCH on raises;
-8. prints the kernels line, the card line, and last
+   path (loss and every parameter's gradient) at 512^2, batch 2;
+8. drives the Swin-T-width MS-UNet (embed 96, depths 2/2/6/2, heads
+   3/6/12/24, window 7, every knob on, 512^2 batch 8 bf16), whose head
+   runs the GELU+depth-to-space kernel: its predict forward and its train
+   step, each with its launch counts, times and a profile, and a float32
+   train step against the composed path;
+9. prints the kernels line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits non-zero.  It imports torch, numpy, the
@@ -53,6 +62,7 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense tensor cores
+F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 B, IMG = 8, 512
 
 # Tolerances on max |kernel - plain|, relative to max(1, max |plain|):
@@ -65,14 +75,23 @@ B, IMG = 8, 512
 # gradients are float32 sums of 2.1M products each, taken in another order
 # than cuDNN's (split-K partials): 1.8e-4 of max|dW| in float32 on an
 # H100, hence 1e-3 there.
+# The patch backwards: a bfloat16 dn / z / dz may round one ulp apart, which
+# the LayerNorm backward and the dx product carry; their weight gradients
+# are float32 sums over up to 32,768 rows in split-K order.  The
+# GELU+depth-to-space pair moves each value once: float32 differs by the
+# tanh's last bits, bfloat16 by one rounding.
 TOL = {
     "window_attention": {"f32": 1e-4, "bf16": 1e-2},
     "window_attention_bwd": {"f32": 1e-4, "bf16": 2e-2},
     "patch_merge": {"f32": 1e-4, "bf16": 1e-2},
+    "patch_merge_bwd": {"f32": 1e-4, "bf16": 2e-2},
     "patch_expand": {"f32": 1e-4, "bf16": 1e-2},
+    "patch_expand_bwd": {"f32": 1e-4, "bf16": 2e-2},
     "refine_head": {"f32": 1e-4, "bf16": 5e-2},
     "refine_head_res": {"f32": 1e-4, "bf16": 5e-2},
     "refine_head_bwd": {"f32": 1e-3, "bf16": 5e-2},
+    "gelu_d2s4": {"f32": 1e-5, "bf16": 1e-2},
+    "gelu_d2s4_bwd": {"f32": 1e-5, "bf16": 1e-2},
 }
 E2E_TOL = 1e-3
 # plain backward vs torch.autograd of the plain forward, float32: the same
@@ -80,8 +99,8 @@ E2E_TOL = 1e-3
 AUTOGRAD_TOL = 1e-4
 # f32 train step, kernel path vs composed path: the loss (a mean over
 # 2 x 512^2 pixels) and each gradient relative to max(1, max|g|); the two
-# paths sum attention, its backward and the head in other orders, which
-# the 52 blocks' backward compounds
+# paths sum attention, the patch ops, their backwards and the head in other
+# orders, which the blocks' backward compounds
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
 PKG = "semantic_segmentation_of_stylegan2_artifacts_tpu_torch"
@@ -109,8 +128,8 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def bound_ms(n_bytes: float, flops: float, op_rate: float = BF16_FLOP_PER_S) -> tuple:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / op_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -135,7 +154,10 @@ def multi_err(label, gots, wants, names) -> tuple:
 
 
 class KernelReport:
-    """Per-kernel sums over the main path's launches of one forward."""
+    """Per-kernel sums over the main path's launches of one forward or
+    step.  A Swin-T shape is added with ``count`` 0 and its launches on the
+    Swin-T path as ``t_count``: checked and timed, it adds to the errors
+    and to the Swin-T sums (:meth:`swin_t`), not to the row."""
 
     def __init__(self, name, source, replaces):
         self.row = dict(name=name, route="cuda", source=f"{PKG}/csrc/{source}",
@@ -143,8 +165,13 @@ class KernelReport:
                         max_abs_err=0.0, max_abs_err_f32=0.0, ms=0.0, plain_ms=0.0,
                         bound_ms=0.0, bound_by="", library_ms=None)
         self._by = {"bytes": 0.0, "operations": 0.0}
+        self.t_sums = [0.0, 0.0, 0.0]  # Swin-T path: ms, plain ms, bound ms
 
-    def add(self, shape_label, count, errs, ms, plain_ms, b_ms, by, lib_ms=None):
+    def swin_t(self) -> str:
+        ms, plain, bound = self.t_sums
+        return f"{self.row['name']} {ms:.4f} / {plain:.4f} / {bound:.4f}"
+
+    def add(self, shape_label, count, errs, ms, plain_ms, b_ms, by, lib_ms=None, t_count=0):
         r = self.row
         name = r["name"]
         for dt in ("f32", "bf16"):
@@ -162,6 +189,8 @@ class KernelReport:
         r["ms"] += count * ms
         r["plain_ms"] += count * plain_ms
         r["bound_ms"] += count * b_ms
+        for i, v in enumerate((ms, plain_ms, b_ms)):
+            self.t_sums[i] += t_count * v
         self._by[by] += count * b_ms
         if lib_ms is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + count * lib_ms
@@ -172,6 +201,10 @@ class KernelReport:
 # the train step (the last stage of each cent decoder, 2 + 2 stage-0 blocks,
 # feeds nothing the loss reads)
 STAGES = [(128, 4, 8, 4), (256, 8, 6, 6), (512, 16, 36, 36), (1024, 32, 2, 2)]
+# the same at Swin-T width (depths 2/2/6/2: 28 forward, 24 backward)
+SWIN_T_STAGES = [(96, 3, 8, 4), (192, 6, 6, 6), (384, 12, 12, 12), (768, 24, 2, 2)]
+SWIN_T = {"MODEL.SWIN.EMBED_DIM": 96, "MODEL.SWIN.DEPTHS": [2, 2, 6, 2],
+          "MODEL.SWIN.NUM_HEADS": [3, 6, 12, 24], "MODEL.SWIN.WINDOW_SIZE": 7}
 
 
 def stage_shapes(wa):
@@ -183,12 +216,14 @@ def stage_shapes(wa):
             yield (stage, *wa.effective_shift(g, g, (ws, ws), (shift, shift)))
 
 
-def check_attention_bwd(fwa, wa, gen) -> KernelReport:
-    rep = KernelReport("window_attention_bwd", "fused_window_attention.cu",
-                       "fused_window_attention.py:597")
+def check_attention_bwd(fwa, wa, gen, stages=STAGES, rep=None, main_path=True) -> KernelReport:
+    """``main_path`` False: another width's shapes, checked and timed with
+    count 0 and no yardstick."""
+    rep = rep or KernelReport("window_attention_bwd", "fused_window_attention.cu",
+                              "fused_window_attention.py:597")
     ws, n = 7, 49
     for stage, hp, wp, sh, sw in stage_shapes(wa):
-        dim, heads, _, blocks = STAGES[stage]
+        dim, heads, _, blocks = stages[stage]
         kw = dict(wh=ws, ww=ws, heads=heads, sh=sh, sw=sw)
         qkv32 = torch.randn((B, hp, wp, 3 * dim), generator=gen, device="cuda")
         d32 = torch.randn((B, hp, wp, dim), generator=gen, device="cuda")
@@ -204,9 +239,15 @@ def check_attention_bwd(fwa, wa, gen) -> KernelReport:
         qkv, d = qkv32.bfloat16(), d32.bfloat16()
         ms = cuda_ms(lambda: fwa.window_attention_bwd(qkv, d, bias, **kw), 10)
         plain = cuda_ms(lambda: fwa.window_attention_bwd_reference(qkv, d, bias, **kw), 2)
+        n_win = B * (hp // ws) * (wp // ws)
+        hd = dim // heads
+        b_ms, by = bound_ms(nbytes(qkv, d, bias) + qkv.numel() * 2 + bias.numel() * 4,
+                            10.0 * n_win * heads * n * n * hd)
+        if not main_path:
+            rep.add(f"{label} (Swin-T)", 0, errs, ms, plain, b_ms, by, t_count=blocks // 2)
+            continue
         # yardstick: the backward of one SDPA call on pre-partitioned
         # (B, nW, heads, 49, hd) with the bias (+ shift mask) as attn_mask
-        hd = dim // heads
         part = qkv.reshape(B, hp // ws, ws, wp // ws, ws, 3, heads, hd).permute(
             5, 0, 1, 3, 6, 2, 4, 7).reshape(3, B, -1, heads, n, hd).contiguous()
         mask = bias[None].expand(part.shape[2], -1, -1, -1)
@@ -220,9 +261,6 @@ def check_attention_bwd(fwa, wa, gen) -> KernelReport:
         lib = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v, mask), dout,
                                                   retain_graph=True), 5)
         del out
-        n_win = B * (hp // ws) * (wp // ws)
-        b_ms, by = bound_ms(nbytes(qkv, d, bias) + qkv.numel() * 2 + bias.numel() * 4,
-                            10.0 * n_win * heads * n * n * hd)
         rep.add(label, blocks // 2, errs, ms, plain, b_ms, by, lib)
     return rep
 
@@ -298,7 +336,7 @@ def check_refine_train(frh, gen) -> tuple:
     return res, bwd
 
 
-def check_plain_backwards(fwa, frh, wa, gen) -> None:
+def check_plain_backwards(fwa, frh, fp, fh, wa, gen) -> None:
     """The plain backwards against torch.autograd of the plain forwards, f32."""
     dim, heads = STAGES[0][:2]
     _, hp, wp, sh, sw = next(s for s in stage_shapes(wa) if s[0] == 0 and s[3])
@@ -326,80 +364,218 @@ def check_plain_backwards(fwa, frh, wa, gen) -> None:
                        ("dy", "dw1", "db1", "dw2", "db2", "dgamma", "dbeta"))
     if rel > AUTOGRAD_TOL:
         raise AssertionError(f"refine plain backward: {rel:.3e} > {AUTOGRAD_TOL:g}")
+    del y, p, out, pre, a2, d, want, got
+    for is_merge, shape in ((True, (2, 64, 64, 96)), (False, (2, 32, 32, 384))):
+        x, w, sc, lb, dy = patch_inputs(gen, shape, is_merge)
+        t = [x, sc, lb, w] if is_merge else [x, w, sc, lb]
+        for v in t:
+            v.requires_grad_()
+        out = (fp.patch_merge_reference if is_merge else fp.patch_expand_reference)(*t)
+        want = torch.autograd.grad(out, t, dy)
+        if is_merge:
+            got = fp.patch_merge_bwd_reference(x.detach(), dy, sc.detach(), lb.detach(),
+                                               w.detach())
+            names = ("dx", "dscale", "dbias", "dweight")
+        else:
+            got = fp.patch_expand_bwd_reference(x.detach(), dy, w.detach(), sc.detach())
+            names = ("dx", "dweight", "dscale", "dbias")
+        what = "merge" if is_merge else "expand"
+        _, rel = multi_err(f"{what} plain bwd vs autograd f32 {shape}", got, want, names)
+        if rel > AUTOGRAD_TOL:
+            raise AssertionError(f"{what} plain backward: {rel:.3e} > {AUTOGRAD_TOL:g}")
+    x = torch.randn((2, 32, 32, 16 * 96), generator=gen, device="cuda").requires_grad_()
+    out = fh.gelu_d2s4_reference(x)
+    d = torch.randn_like(out)
+    want = torch.autograd.grad(out, x, d)
+    got = (fh.gelu_d2s4_bwd_reference(x.detach(), d),)
+    _, rel = multi_err("gelu+d2s plain bwd vs autograd f32", got, want, ("dx",))
+    if rel > AUTOGRAD_TOL:
+        raise AssertionError(f"gelu+d2s plain backward: {rel:.3e} > {AUTOGRAD_TOL:g}")
 
 
-def check_attention(fwa, wa, gen) -> KernelReport:
-    rep = KernelReport("window_attention", "fused_window_attention.cu",
-                       "fused_window_attention.py:561")
-    ws, tokens = 7, IMG // 4
-    for stage, (dim, heads, blocks) in enumerate(
-            [(128, 4, 8), (256, 8, 6), (512, 16, 36), (1024, 32, 2)]):
-        g = tokens >> stage
-        for shift in (0, 3):
-            hp, wp, sh, sw = wa.effective_shift(g, g, (ws, ws), (shift, shift))
-            kw = dict(wh=ws, ww=ws, heads=heads, sh=sh, sw=sw)
-            qkv32 = torch.randn((B, hp, wp, 3 * dim), generator=gen, device="cuda")
-            table = torch.randn(((2 * ws - 1) ** 2, heads), generator=gen, device="cuda")
-            bias = wa.gather_bias(table, ws, ws, heads).float().contiguous()
-            errs = {}
-            for dt, qkv in (("f32", qkv32), ("bf16", qkv32.to(torch.bfloat16))):
-                errs[dt] = rel_err(fwa.window_attention(qkv, bias, **kw),
-                                   fwa.window_attention_reference(qkv, bias, **kw))
-            qkv = qkv32.to(torch.bfloat16)
-            ms = cuda_ms(lambda: fwa.window_attention(qkv, bias, **kw), 20)
-            plain = cuda_ms(lambda: fwa.window_attention_reference(qkv, bias, **kw), 3)
-            # yardstick: one SDPA call on pre-partitioned (B, nW, heads, 49, hd)
-            n, hd = ws * ws, dim // heads
-            part = qkv.reshape(B, hp // ws, ws, wp // ws, ws, 3, heads, hd).permute(
-                5, 0, 1, 3, 6, 2, 4, 7).reshape(3, B, -1, heads, n, hd).contiguous()
-            mask = bias[None].expand(part.shape[2], -1, -1, -1)
-            if sh or sw:
-                sm = torch.as_tensor(wa.shifted_window_mask(hp, wp, ws, ws, sh, sw),
-                                     device="cuda")
-                mask = mask + sm[:, None]
-            mask = mask.to(torch.bfloat16).contiguous()
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-                part[0], part[1], part[2], attn_mask=mask), 20)
-            b_ms, by = bound_ms(nbytes(qkv, bias) + qkv.numel() // 3 * 2,
-                                4.0 * B * (hp // ws) * (wp // ws) * heads * n * n * hd)
-            rep.add(f"qkv{tuple(qkv.shape)} shift{(sh, sw)}", blocks // 2, errs, ms,
-                    plain, b_ms, by, lib)
+def check_attention(fwa, wa, gen, stages=STAGES, rep=None, main_path=True) -> KernelReport:
+    """``main_path`` False: another width's shapes, checked and timed with
+    count 0 and no yardstick."""
+    rep = rep or KernelReport("window_attention", "fused_window_attention.cu",
+                              "fused_window_attention.py:561")
+    ws, n = 7, 49
+    for stage, hp, wp, sh, sw in stage_shapes(wa):
+        dim, heads, blocks, _ = stages[stage]
+        kw = dict(wh=ws, ww=ws, heads=heads, sh=sh, sw=sw)
+        qkv32 = torch.randn((B, hp, wp, 3 * dim), generator=gen, device="cuda")
+        table = torch.randn(((2 * ws - 1) ** 2, heads), generator=gen, device="cuda")
+        bias = wa.gather_bias(table, ws, ws, heads).float().contiguous()
+        errs = {}
+        for dt, qkv in (("f32", qkv32), ("bf16", qkv32.to(torch.bfloat16))):
+            errs[dt] = rel_err(fwa.window_attention(qkv, bias, **kw),
+                               fwa.window_attention_reference(qkv, bias, **kw))
+        qkv = qkv32.to(torch.bfloat16)
+        ms = cuda_ms(lambda: fwa.window_attention(qkv, bias, **kw), 20)
+        plain = cuda_ms(lambda: fwa.window_attention_reference(qkv, bias, **kw), 3)
+        hd = dim // heads
+        b_ms, by = bound_ms(nbytes(qkv, bias) + qkv.numel() // 3 * 2,
+                            4.0 * B * (hp // ws) * (wp // ws) * heads * n * n * hd)
+        label = f"qkv{tuple(qkv.shape)} shift{(sh, sw)}"
+        if not main_path:
+            rep.add(f"{label} (Swin-T)", 0, errs, ms, plain, b_ms, by, t_count=blocks // 2)
+            continue
+        # yardstick: one SDPA call on pre-partitioned (B, nW, heads, 49, hd)
+        part = qkv.reshape(B, hp // ws, ws, wp // ws, ws, 3, heads, hd).permute(
+            5, 0, 1, 3, 6, 2, 4, 7).reshape(3, B, -1, heads, n, hd).contiguous()
+        mask = bias[None].expand(part.shape[2], -1, -1, -1)
+        if sh or sw:
+            sm = torch.as_tensor(wa.shifted_window_mask(hp, wp, ws, ws, sh, sw),
+                                 device="cuda")
+            mask = mask + sm[:, None]
+        mask = mask.to(torch.bfloat16).contiguous()
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            part[0], part[1], part[2], attn_mask=mask), 20)
+        rep.add(label, blocks // 2, errs, ms, plain, b_ms, by, lib)
     return rep
+
+
+def patch_inputs(gen, shape, is_merge):
+    """x, torch-layout weight, LN scale/bias and a cotangent for one merge
+    or expand at ``shape``, float32."""
+    b, h, w, c = shape
+    x32 = torch.randn(shape, generator=gen, device="cuda")
+    wt = torch.randn((2 * c, 4 * c) if is_merge else (2 * c, c), generator=gen,
+                     device="cuda") * 0.05
+    ln = 4 * c if is_merge else c // 2
+    sc = 1 + 0.1 * torch.randn(ln, generator=gen, device="cuda")
+    lb = 0.1 * torch.randn(ln, generator=gen, device="cuda")
+    dy_shape = (b, h // 2, w // 2, 2 * c) if is_merge else (b, 2 * h, 2 * w, c // 2)
+    dy32 = torch.randn(dy_shape, generator=gen, device="cuda")
+    return x32, wt, sc, lb, dy32
+
+
+# (shape, launches per forward or step on the Swin-B main path, on the
+# Swin-T path) of the merges and expands
+MERGE_CASES = [((B, 128, 128, 128), 1, 0), ((B, 64, 64, 256), 1, 0), ((B, 32, 32, 512), 1, 0),
+               ((B, 128, 128, 96), 0, 1), ((B, 64, 64, 192), 0, 1), ((B, 32, 32, 384), 0, 1)]
+EXPAND_CASES = [((B, 16, 16, 1024), 1, 0), ((B, 32, 32, 512), 2, 0), ((B, 64, 64, 256), 3, 0),
+                ((B, 16, 16, 768), 0, 1), ((B, 32, 32, 384), 0, 2), ((B, 64, 64, 192), 0, 3)]
+
+
+def _swin_t(shape, count):
+    return f"x{shape}" + ("" if count else " (Swin-T)")
 
 
 def check_patch(fp, gen) -> tuple:
     merge = KernelReport("patch_merge", "fused_patch.cu", "fused_patch.py:206")
     expand = KernelReport("patch_expand", "fused_patch.cu", "fused_patch.py:357")
-    cases = [(merge, (B, 128, 128, 128), 1), (merge, (B, 64, 64, 256), 1),
-             (merge, (B, 32, 32, 512), 1), (expand, (B, 16, 16, 1024), 1),
-             (expand, (B, 32, 32, 512), 2), (expand, (B, 64, 64, 256), 3)]
-    for rep, shape, count in cases:
-        c = shape[-1]
+    for rep, cases in ((merge, MERGE_CASES), (expand, EXPAND_CASES)):
         is_merge = rep is merge
-        x32 = torch.randn(shape, generator=gen, device="cuda")
-        w = torch.randn((2 * c, 4 * c) if is_merge else (2 * c, c), generator=gen,
-                        device="cuda") * 0.05
-        ln = 4 * c if is_merge else c // 2
-        sc = 1 + 0.1 * torch.randn(ln, generator=gen, device="cuda")
-        lb = 0.1 * torch.randn(ln, generator=gen, device="cuda")
-        if is_merge:
-            run = lambda x: fp.fused_patch_merge(x, sc, lb, w)  # noqa: E731
-            plain = lambda x: fp.patch_merge_reference(x, sc, lb, w)  # noqa: E731
-        else:
-            run = lambda x: fp.fused_patch_expand(x, w, sc, lb)  # noqa: E731
-            plain = lambda x: fp.patch_expand_reference(x, w, sc, lb)  # noqa: E731
-        errs = {dt: rel_err(run(x), plain(x))
-                for dt, x in (("f32", x32), ("bf16", x32.to(torch.bfloat16)))}
-        x = x32.to(torch.bfloat16)
-        ms = cuda_ms(lambda: run(x), 20)
-        plain_ms = cuda_ms(lambda: plain(x), 3)
-        k, n = (4 * c, 2 * c) if is_merge else (c, 2 * c)
-        m = x.numel() // k  # GEMM rows
-        out_numel = m * n if is_merge else 2 * x.numel()
-        b_ms, by = bound_ms(2 * (x.numel() + out_numel + k * n) + 8 * ln,
-                            2.0 * m * k * n)
-        rep.add(f"x{shape}", count, errs, ms, plain_ms, b_ms, by)
+        for shape, count, t_count in cases:
+            c = shape[-1]
+            x32, w, sc, lb, _ = patch_inputs(gen, shape, is_merge)
+            if is_merge:
+                run = lambda x: fp.fused_patch_merge(x, sc, lb, w)  # noqa: E731
+                plain = lambda x: fp.patch_merge_reference(x, sc, lb, w)  # noqa: E731
+            else:
+                run = lambda x: fp.fused_patch_expand(x, w, sc, lb)  # noqa: E731
+                plain = lambda x: fp.patch_expand_reference(x, w, sc, lb)  # noqa: E731
+            errs = {dt: rel_err(run(x), plain(x))
+                    for dt, x in (("f32", x32), ("bf16", x32.to(torch.bfloat16)))}
+            x = x32.to(torch.bfloat16)
+            ms = cuda_ms(lambda: run(x), 20)
+            plain_ms = cuda_ms(lambda: plain(x), 3)
+            k, n = (4 * c, 2 * c) if is_merge else (c, 2 * c)
+            m = x.numel() // k  # GEMM rows
+            out_numel = m * n if is_merge else 2 * x.numel()
+            ln = 4 * c if is_merge else c // 2
+            b_ms, by = bound_ms(2 * (x.numel() + out_numel + k * n) + 8 * ln,
+                                2.0 * m * k * n)
+            rep.add(_swin_t(shape, count), count, errs, ms, plain_ms, b_ms, by,
+                    t_count=t_count)
     return merge, expand
+
+
+def check_patch_bwd(fp, gen) -> tuple:
+    """The merge and expand backward kernels (dx and the three parameter
+    gradients) against their plain versions, and against themselves on a
+    repeated call (equal bits), at both widths."""
+    merge = KernelReport("patch_merge_bwd", "fused_patch_bwd.cu", "fused_patch.py:227")
+    expand = KernelReport("patch_expand_bwd", "fused_patch_bwd.cu", "fused_patch.py:378")
+    for rep, cases in ((merge, MERGE_CASES), (expand, EXPAND_CASES)):
+        is_merge = rep is merge
+        for shape, count, t_count in cases:
+            c = shape[-1]
+            x32, w, sc, lb, dy32 = patch_inputs(gen, shape, is_merge)
+            if is_merge:
+                run = lambda x, d: fp.patch_merge_bwd(x, d, sc, lb, w)  # noqa: E731
+                plain = lambda x, d: fp.patch_merge_bwd_reference(x, d, sc, lb, w)  # noqa: E731
+                names = ("dx", "dscale", "dbias", "dweight")
+            else:
+                run = lambda x, d: fp.patch_expand_bwd(x, d, w, sc)  # noqa: E731
+                plain = lambda x, d: fp.patch_expand_bwd_reference(x, d, w, sc)  # noqa: E731
+                names = ("dx", "dweight", "dscale", "dbias")
+            label = _swin_t(shape, count)
+            errs = {}
+            for dt in ("f32", "bf16"):
+                x, d = (x32, dy32) if dt == "f32" else (x32.bfloat16(), dy32.bfloat16())
+                got = run(x, d)
+                errs[dt] = multi_err(f"{label} {dt}", got, plain(x, d), names)
+                # the parameter gradients are summed in a fixed order: a
+                # second call gives the same bits
+                if not all(torch.equal(a, b) for a, b in zip(got, run(x, d))):
+                    raise AssertionError(f"{rep.row['name']} {label} {dt}: a repeated "
+                                         "call gave other bits")
+            x, d = x32.bfloat16(), dy32.bfloat16()
+            ms = cuda_ms(lambda: run(x, d), 10)
+            plain_ms = cuda_ms(lambda: plain(x, d), 3)
+            k, n = (4 * c, 2 * c) if is_merge else (c, 2 * c)
+            m = x.numel() // k if is_merge else x.numel() // c
+            ln = 4 * c if is_merge else c // 2
+            # x, dy and the weight read once; dx, the float32 dW and the two
+            # float32 LN-parameter gradients written once; merge does two
+            # products of 2*m*k*n, expand three of 2*m*c*2c
+            n_bytes = 2 * (2 * x.numel() + d.numel() + k * n) + 4 * k * n + 4 * (2 + 2) * ln
+            flops = (2 if is_merge else 3) * 2.0 * m * k * n
+            b_ms, by = bound_ms(n_bytes, flops)
+            rep.add(label, count, errs, ms, plain_ms, b_ms, by, t_count=t_count)
+    return merge, expand
+
+
+def check_gelu_d2s4(fh, gen) -> tuple:
+    """The GELU+depth-to-space forward and backward kernels at the Swin-T
+    head's shape (8, 128, 128, 16 * 96)."""
+    fwd = KernelReport("gelu_d2s4", "fused_head.cu", "fused_head.py:85")
+    bwd = KernelReport("gelu_d2s4_bwd", "fused_head.cu", "fused_head.py:104")
+    c, ht = 96, IMG // 4
+    x32 = torch.randn((B, ht, ht, 16 * c), generator=gen, device="cuda")
+    g32 = torch.randn((B, IMG, IMG, c), generator=gen, device="cuda")
+    f_errs, b_errs = {}, {}
+    for dt in ("f32", "bf16"):
+        x, g = (x32, g32) if dt == "f32" else (x32.bfloat16(), g32.bfloat16())
+        f_errs[dt] = rel_err(fh.gelu_d2s4_fwd(x), fh.gelu_d2s4_reference(x))
+        b_errs[dt] = rel_err(fh.gelu_d2s4_bwd(x, g), fh.gelu_d2s4_bwd_reference(x, g))
+    x, g = x32.bfloat16(), g32.bfloat16()
+    del x32, g32
+    label = f"x{tuple(x.shape)}"
+    ms_f = cuda_ms(lambda: fh.gelu_d2s4_fwd(x), 20)
+    plain_f = cuda_ms(lambda: fh.gelu_d2s4_reference(x), 3)
+    ms_b = cuda_ms(lambda: fh.gelu_d2s4_bwd(x, g), 20)
+    plain_b = cuda_ms(lambda: fh.gelu_d2s4_bwd_reference(x, g), 3)
+    # each value read once and written once (the backward reads x and the
+    # cotangent); float32 operations per value, tanh counted as one: 9 for
+    # GELU, 16 for GELU' and the product
+    b_f, by_f = bound_ms(2 * nbytes(x), 9.0 * x.numel(), F32_FLOP_PER_S)
+    b_b, by_b = bound_ms(3 * nbytes(x), 16.0 * x.numel(), F32_FLOP_PER_S)
+    fwd.add(label, 1, f_errs, ms_f, plain_f, b_f, by_f, t_count=1)
+    bwd.add(label, 1, b_errs, ms_b, plain_b, b_b, by_b, t_count=1)
+    # context, not a yardstick: no single PyTorch call computes either; the
+    # composed bf16 GELU and depth-to-space copy, and its autograd backward
+    xx = x.detach().requires_grad_()
+
+    def composed():
+        y = F.gelu(xx, approximate="tanh").reshape(B, ht, ht, 4, 4, c)
+        return y.permute(0, 1, 3, 2, 4, 5).reshape(B, IMG, IMG, c)
+
+    comp_f = cuda_ms(lambda: composed().detach(), 10)
+    comp_b = cuda_ms(lambda: torch.autograd.grad(composed(), xx, g), 5)
+    print(f"  gelu+d2s composed bf16 (context): fwd {comp_f:.4f} ms, fwd+bwd {comp_b:.4f} ms")
+    return fwd, bwd
 
 
 def check_refine_head(frh, gen) -> KernelReport:
@@ -474,10 +650,21 @@ def deployment_config(default_config, **changes):
     return cfg
 
 
-# bench.py's train step (bench.py:153-163, 216): FUSED_PATCH off (the patch
-# backwards are not ported yet), no dropout, drop-path 0.1
-TRAIN_CHANGES = {"TPU.FUSED_PATCH": False, "MODEL.DROP_RATE": 0.0,
-                 "MODEL.ATTN_DROP_RATE": 0.0, "MODEL.DROP_PATH_RATE": 0.1}
+# bench.py's train step (bench.py:153-163, 216; FUSED_PATCH on unless
+# --no_fused_patch, bench.py:161): no dropout, drop-path 0.1
+TRAIN_CHANGES = {"MODEL.DROP_RATE": 0.0, "MODEL.ATTN_DROP_RATE": 0.0,
+                 "MODEL.DROP_PATH_RATE": 0.1}
+# the composed path: every kernel knob off, float32 softmax
+COMPOSED = {"TPU.USE_PALLAS_ATTENTION": False, "TPU.FUSED_HEAD": False,
+            "TPU.FUSED_PATCH": False, "TPU.SOFTMAX_DTYPE": "float32"}
+
+
+def expect(build, **counts) -> dict:
+    """The full launch dict of a path: ``counts``, every other counter 0."""
+    unknown = set(counts) - set(build.LAUNCHES)
+    if unknown:
+        raise KeyError(f"no such launch counters: {sorted(unknown)}")
+    return {k: counts.get(k, 0) for k in build.LAUNCHES}
 
 
 def train_batch(rng, batch):
@@ -486,10 +673,12 @@ def train_batch(rng, batch):
     return images, labels
 
 
-def run_train_step(default_config, MSUNet, create_train_state, make_train_step,
-                   build, rng) -> dict:
-    """Phase 6: the train step at full Swin-B width; returns its launches."""
-    cfg = deployment_config(default_config, **TRAIN_CHANGES)
+def run_train_step(train_args, build, rng, changes, want, label, n_timed=10) -> dict:
+    """A train step of the configuration ``changes`` at 512^2 batch 8: its
+    launch counts against ``want``, ``n_timed`` timed steps on one batch
+    (the loss must fall), a profile of one; returns the launches."""
+    default_config, MSUNet, create_train_state, make_train_step = train_args
+    cfg = deployment_config(default_config, **TRAIN_CHANGES, **changes)
     model = MSUNet.from_config(cfg)
     state = create_train_state(model, cfg)
     step = make_train_step(model, 0.2, 0.8, 0.45)
@@ -500,16 +689,10 @@ def run_train_step(default_config, MSUNet, create_train_state, make_train_step,
     step(state, images, labels, 1e-4)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
-    print(f"train launches per step: {launches}")
-    # 48 backwards for 52 forwards: the last stage of each cent decoder (2 + 2
-    # blocks) feeds nothing the loss reads (the reference drops its output),
-    # so autograd runs no backward through it
-    want = {"window_attention": 52, "window_attention_bwd": 48, "refine_head_res": 1,
-            "refine_head_bwd": 1, "patch_merge": 0, "patch_expand": 0, "refine_head": 0}
+    print(f"{label} train launches per step: {launches}")
     if launches != want:
-        raise AssertionError(f"train launch counts {launches} != {want}")
+        raise AssertionError(f"{label} train launch counts {launches} != {want}")
     torch.cuda.reset_peak_memory_stats()
-    n_timed = 10
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     losses = []
     t0 = time.perf_counter()
@@ -521,23 +704,23 @@ def run_train_step(default_config, MSUNet, create_train_state, make_train_step,
     wall = time.perf_counter() - t0
     losses = [x.item() for x in losses]
     step_ms = start.elapsed_time(end) / n_timed
-    print(f"train 512^2 b{B} bf16: {step_ms:.2f} ms/step (CUDA events), "
+    print(f"{label} train 512^2 b{B} bf16: {step_ms:.2f} ms/step (CUDA events), "
           f"{B * n_timed / wall:.2f} img/s (host clock, synchronised), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss "
-          f"{losses[0]:.5f} -> {losses[-1]:.5f}")
+          f"{losses[0]:.5f} -> {losses[-1]:.5f} over {n_timed} steps")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train losses not finite and falling: {losses}")
+        raise AssertionError(f"{label} train losses not finite and falling: {losses}")
     profile_forward(lambda imgs: step(state, imgs, labels, 1e-4), images, step_ms,
-                    top=15, what="train step")
+                    top=15, what=f"{label} train step")
     return launches
 
 
-def check_train_e2e(default_config, MSUNet, create_train_state, make_train_step, rng):
-    """Phase 7: a float32 train step, kernel path vs composed path."""
-    cfg = deployment_config(default_config, **{**TRAIN_CHANGES, "MODEL.DROP_PATH_RATE": 0.0})
-    plain_cfg = deployment_config(default_config, **{
-        **TRAIN_CHANGES, "MODEL.DROP_PATH_RATE": 0.0, "TPU.USE_PALLAS_ATTENTION": False,
-        "TPU.FUSED_HEAD": False, "TPU.SOFTMAX_DTYPE": "float32"})
+def check_train_e2e(train_args, rng, changes, label):
+    """A float32 train step at 512^2 batch 2, kernel path vs composed path."""
+    default_config, MSUNet, create_train_state, make_train_step = train_args
+    base = {**TRAIN_CHANGES, "MODEL.DROP_PATH_RATE": 0.0, **changes}
+    cfg = deployment_config(default_config, **base)
+    plain_cfg = deployment_config(default_config, **base, **COMPOSED)
     kern = MSUNet.from_config(cfg, dtype=torch.float32)
     comp = MSUNet.from_config(plain_cfg, dtype=torch.float32)
     comp.load_state_dict(kern.state_dict())
@@ -554,26 +737,47 @@ def check_train_e2e(default_config, MSUNet, create_train_state, make_train_step,
         rel = (pk.grad - pc.grad).abs().max().item() / max(1.0, g)
         if not math.isfinite(rel) or rel > worst:
             worst, worst_name = rel, name
-    print(f"train step f32 512^2 b2, kernel vs composed path: loss {loss['kernel']:.7f} vs "
-          f"{loss['composed']:.7f}, |diff| {dl:.3e} (tol {TRAIN_LOSS_TOL:g}); worst gradient "
-          f"{worst_name} rel {worst:.3e} (tol {TRAIN_GRAD_TOL:g})")
+    print(f"{label} train step f32 512^2 b2, kernel vs composed path: loss "
+          f"{loss['kernel']:.7f} vs {loss['composed']:.7f}, |diff| {dl:.3e} (tol "
+          f"{TRAIN_LOSS_TOL:g}); worst gradient {worst_name} rel {worst:.3e} (tol "
+          f"{TRAIN_GRAD_TOL:g})")
     if not dl <= TRAIN_LOSS_TOL or not worst <= TRAIN_GRAD_TOL:
-        raise AssertionError("f32 train step: kernel path differs from the composed path")
+        raise AssertionError(f"{label} f32 train step: kernel path differs from the "
+                             "composed path")
 
 
-def check_patch_guard(default_config, MSUNet, create_train_state, make_train_step, rng):
-    """Phase 7b: with FUSED_PATCH on, a train step raises (no patch backward)."""
-    cfg = deployment_config(default_config, **{**TRAIN_CHANGES, "TPU.FUSED_PATCH": True,
-                                               "MODEL.SWIN.DEPTHS": [2, 2, 2, 2]})
-    model = MSUNet.from_config(cfg)
-    images, labels = train_batch(rng, 1)
-    try:
-        make_train_step(model, 0.2, 0.8, 0.45)(create_train_state(model, cfg), images,
-                                               labels, 1e-4)
-    except NotImplementedError as e:
-        print(f"FUSED_PATCH guard: a train step raised NotImplementedError: {e}")
-        return
-    raise AssertionError("a train step with FUSED_PATCH on did not raise")
+def run_predict(step, images, build, want, label) -> tuple:
+    """One predict forward with the launch counts zeroed just before and
+    read just after (after a warm-up call), checked against ``want``;
+    returns the launches and the probabilities."""
+    torch.cuda.reset_peak_memory_stats()
+    step(images)  # first call: allocator and cuDNN warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    probs = step(images)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    print(f"{label} predict launches per forward: {launches}")
+    if launches != want:
+        raise AssertionError(f"{label} launch counts {launches} != {want}")
+    if probs.shape != (B, IMG, IMG) or not torch.isfinite(probs).all() \
+            or probs.min() < 0 or probs.max() > 1:
+        raise AssertionError(f"{label}: bad predict output {tuple(probs.shape)}")
+    return launches, probs
+
+
+def time_predict(step, images, label) -> float:
+    fwd_ms = cuda_ms(lambda: step(images), 3, warmup=0)
+    t0 = time.perf_counter()
+    n_timed = 3
+    for _ in range(n_timed):
+        step(images)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"{label} predict 512^2 b{B} bf16: {fwd_ms:.2f} ms/forward (CUDA events), "
+          f"{B * n_timed / wall:.2f} img/s (host clock, synchronised), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return fwd_ms
 
 
 def main() -> int:
@@ -589,6 +793,7 @@ def main() -> int:
         )
         from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.ops import (
             _build,
+            fused_head,
             fused_patch,
             fused_refine_head,
             fused_window_attention,
@@ -621,12 +826,16 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print(f"  ptxas: {line.strip()}")
 
-    # -- 2. each kernel against its plain version at the main-path shapes
+    # -- 2. each forward kernel against its plain version at the predict shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
     print("kernels vs plain (512^2 batch 8 shapes; ms are bf16, per launch):")
-    reports = [check_attention(fused_window_attention, window_attention, gen)]
-    reports += list(check_patch(fused_patch, gen))
-    reports.append(check_refine_head(fused_refine_head, gen))
+    attn = check_attention(fused_window_attention, window_attention, gen)
+    check_attention(fused_window_attention, window_attention, gen, SWIN_T_STAGES, attn,
+                    main_path=False)
+    merge, expand = check_patch(fused_patch, gen)
+    refine = check_refine_head(fused_refine_head, gen)
+    torch.cuda.empty_cache()
+    gelu_f, gelu_b = check_gelu_d2s4(fused_head, gen)
     torch.cuda.empty_cache()
 
     # -- 3. the predict path at full Swin-B width
@@ -643,32 +852,12 @@ def main() -> int:
     step = make_predict_step(model)
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (B, IMG, IMG, 3), dtype=np.uint8)
-    step(images)  # first call: allocator and cuDNN warm-up
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    probs = step(images)
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    print(f"predict launches per forward: {launches}")
-    want = {"window_attention": 52, "window_attention_bwd": 0, "patch_merge": 3,
-            "patch_expand": 6, "refine_head": 1, "refine_head_res": 0, "refine_head_bwd": 0}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
-    if probs.shape != (B, IMG, IMG) or not torch.isfinite(probs).all() \
-            or probs.min() < 0 or probs.max() > 1:
-        raise AssertionError(f"bad predict output {tuple(probs.shape)}")
-    for r in reports:
+    launches, probs = run_predict(
+        step, images, _build, expect(_build, window_attention=52, patch_merge=3,
+                                     patch_expand=6, refine_head=1), "Swin-B")
+    for r in (attn, merge, expand, refine):
         r.row["launches"] = launches[r.row["name"]]
-    fwd_ms = cuda_ms(lambda: step(images), 3, warmup=0)
-    t0 = time.perf_counter()
-    n_timed = 3
-    for _ in range(n_timed):
-        step(images)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    print(f"predict 512^2 b{B} bf16: {fwd_ms:.2f} ms/forward (CUDA events), "
-          f"{B * n_timed / wall:.2f} img/s (host clock, synchronised), "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    fwd_ms = time_predict(step, images, "Swin-B")
     profile_forward(step, images, fwd_ms)
 
     loader = [{"image": rng.integers(0, 256, (B, IMG, IMG, 3), dtype=np.uint8),
@@ -687,12 +876,8 @@ def main() -> int:
 
     # -- 4. end-to-end: kernel path vs composed path, float32
     kern = MSUNet.from_config(cfg, dtype=torch.float32)
-    plain_cfg = default_config()
-    plain_cfg.merge_from_dict(cfg.to_dict())
-    for knob in ("USE_PALLAS_ATTENTION", "FUSED_HEAD", "FUSED_PATCH"):
-        plain_cfg.TPU[knob] = False
-    plain_cfg.TPU.SOFTMAX_DTYPE = "float32"
-    comp = MSUNet.from_config(plain_cfg, dtype=torch.float32)
+    comp = MSUNet.from_config(deployment_config(default_config, **COMPOSED),
+                              dtype=torch.float32)
     comp.load_state_dict(kern.state_dict())
     x = torch.from_numpy(images[:2]).cuda().float() / 255.0
     with torch.inference_mode():
@@ -707,28 +892,71 @@ def main() -> int:
     del kern, comp, a, b
     torch.cuda.empty_cache()
 
-    # -- 5. the training kernels at the train step's shapes
+    # -- 5. the training kernels at the train steps' shapes
     print("training kernels vs plain (512^2 batch 8 train-step shapes; ms are bf16):")
     attn_bwd = check_attention_bwd(fused_window_attention, window_attention, gen)
+    check_attention_bwd(fused_window_attention, window_attention, gen, SWIN_T_STAGES,
+                        attn_bwd, main_path=False)
     torch.cuda.empty_cache()
     res, bwd = check_refine_train(fused_refine_head, gen)
     torch.cuda.empty_cache()
-    check_plain_backwards(fused_window_attention, fused_refine_head, window_attention, gen)
+    merge_bwd, expand_bwd = check_patch_bwd(fused_patch, gen)
+    torch.cuda.empty_cache()
+    check_plain_backwards(fused_window_attention, fused_refine_head, fused_patch, fused_head,
+                          window_attention, gen)
     torch.cuda.empty_cache()
 
-    # -- 6. the train step at full Swin-B width
+    # -- 6. the Swin-B train step, every config.yaml knob on; then FUSED_PATCH off
     train_args = (default_config, MSUNet, create_train_state, make_train_step)
-    launches = run_train_step(*train_args, _build, rng)
-    for r in (attn_bwd, res, bwd):
+    # 48 backwards for 52 forwards: the last stage of each cent decoder (2 + 2
+    # blocks) feeds nothing the loss reads (the reference drops its output),
+    # so autograd runs no backward through it.  Every merge and expand has a
+    # backward: cent decoder 2's expand feeds skip 0, cent decoder 1's two
+    # feed skips 1 and 0, the main decoder's three the head.
+    launches = run_train_step(
+        train_args, _build, rng, {}, expect(
+            _build, window_attention=52, window_attention_bwd=48, patch_merge=3,
+            patch_merge_bwd=3, patch_expand=6, patch_expand_bwd=6, refine_head_res=1,
+            refine_head_bwd=1), "Swin-B")
+    for r in (attn_bwd, res, bwd, merge_bwd, expand_bwd):
         r.row["launches"] = launches[r.row["name"]]
-    reports = [reports[0], attn_bwd, *reports[1:], res, bwd]
+    torch.cuda.empty_cache()
+    run_train_step(train_args, _build, rng, {"TPU.FUSED_PATCH": False}, expect(
+        _build, window_attention=52, window_attention_bwd=48, refine_head_res=1,
+        refine_head_bwd=1), "Swin-B FUSED_PATCH off")
     torch.cuda.empty_cache()
 
-    # -- 7. f32 train step, kernel vs composed; the FUSED_PATCH guard
-    check_train_e2e(*train_args, rng)
+    # -- 7. f32 train step, kernel vs composed path
+    check_train_e2e(train_args, rng, {}, "Swin-B")
     torch.cuda.empty_cache()
-    check_patch_guard(*train_args, rng)
 
+    # -- 8. the Swin-T-width model: predict, train step, f32 train check
+    cfg = deployment_config(default_config, **SWIN_T)
+    model = MSUNet.from_config(cfg)
+    print(f"Swin-T model: {sum(p.numel() for p in model.parameters())} params, head "
+          f"GELU+depth-to-space kernel {model.ms_unet.up.fused_gelu_d2s}")
+    step = make_predict_step(model)
+    launches, _ = run_predict(
+        step, images, _build, expect(_build, window_attention=28, patch_merge=3,
+                                     patch_expand=6, gelu_d2s4=1), "Swin-T")
+    gelu_f.row["launches"] = launches["gelu_d2s4"]
+    fwd_ms = time_predict(step, images, "Swin-T")
+    profile_forward(step, images, fwd_ms, what="Swin-T forward")
+    del step, model
+    torch.cuda.empty_cache()
+    launches = run_train_step(
+        train_args, _build, rng, SWIN_T, expect(
+            _build, window_attention=28, window_attention_bwd=24, patch_merge=3,
+            patch_merge_bwd=3, patch_expand=6, patch_expand_bwd=6, gelu_d2s4=1,
+            gelu_d2s4_bwd=1), "Swin-T")
+    gelu_b.row["launches"] = launches["gelu_d2s4_bwd"]
+    torch.cuda.empty_cache()
+    check_train_e2e(train_args, rng, SWIN_T, "Swin-T")
+
+    reports = [attn, attn_bwd, merge, merge_bwd, expand, expand_bwd, refine, res, bwd,
+               gelu_f, gelu_b]
+    print("Swin-T path, per forward or step, kernel / plain / bound ms (bf16): " + "; ".join(
+        r.swin_t() for r in reports if r.t_sums[0]))
     print(json.dumps({"kernels": [r.row for r in reports]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

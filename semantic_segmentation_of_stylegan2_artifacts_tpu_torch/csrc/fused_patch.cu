@@ -21,14 +21,13 @@
 // chunks of 16 and applies the LN while loading the A tile (a whole
 // 64 x 2048 A block would not fit shared memory); expand keeps a
 // 32 x C/2 float32 accumulator in registers so the LN of a group runs in
-// the epilogue with one warp per row.  The products run on the CUDA cores
-// in float32; tensor cores are later work.
-#include "common.cuh"
+// the epilogue with one warp per row; it takes every group width C/2 that
+// is a multiple of 32 up to 512 (one template instance per width, Swin-B's
+// 128/256/512 and Swin-T's 96/192/384 among them).  The products run on
+// the CUDA cores in float32; tensor cores are later work.
+#include "fused_patch.cuh"
 
 namespace ssa {
-
-constexpr int kRows = 32;   // rows per block (8 warps x 4 rows)
-constexpr int kChunk = 16;  // K per shared-memory step
 
 template <typename T, int NPT>
 __global__ void __launch_bounds__(256)
@@ -43,27 +42,12 @@ patch_merge_fwd_kernel(const T* __restrict__ x, const float* __restrict__ sc,
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int m0 = blockIdx.x * kRows, n0 = blockIdx.y * BN;
-  const int H2 = H / 2, W2 = W / 2, K = 4 * C, N = 2 * C;
+  const int K = 4 * C, N = 2 * C;
   const long long wc = (long long)W * C;
 
-  if (threadIdx.x < kRows) {
-    const int m = m0 + threadIdx.x;
-    long long base = -1;
-    if (m < M) {
-      const int b = m / (H2 * W2), rem = m - b * H2 * W2;
-      const int i = rem / W2, j = rem - i * W2;
-      base = ((long long)(b * H + 2 * i) * W + 2 * j) * C;
-    }
-    base_s[threadIdx.x] = base;
-  }
+  if (threadIdx.x < kRows) base_s[threadIdx.x] = merge_base(m0 + threadIdx.x, H, W, C, M);
   __syncthreads();
-
-  // channel k of the merged row: block q = k / C is x0..x3 =
-  // (dy,dx) = (0,0), (1,0), (0,1), (1,1)
-  auto offset = [&](int k) {
-    const int q = k / C;
-    return (long long)(q & 1) * wc + (long long)(q >> 1) * C + (k - q * C);
-  };
+  auto offset = [&](int k) { return merge_offset(k, C, wc); };
 
   for (int r = 0; r < 4; ++r) {
     const int row = warp * 4 + r;
@@ -144,38 +128,8 @@ patch_expand_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int m0 = blockIdx.x * kRows, g = blockIdx.y, n0 = g * NG;
-  const int N = 2 * C;
-
   float acc[4][NPT];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < NPT; ++c) acc[r][c] = 0.0f;
-
-  for (int k0 = 0; k0 < C; k0 += kChunk) {
-    for (int e = threadIdx.x; e < kRows * kChunk; e += blockDim.x) {
-      const int row = e / kChunk, kk = e - row * kChunk, m = m0 + row;
-      As[kk][row] = (m < M) ? to_f(x[(long long)m * C + k0 + kk]) : 0.0f;
-    }
-    for (int e = threadIdx.x; e < kChunk * NG; e += blockDim.x) {
-      const int kk = e / NG, nn = e - kk * NG;
-      Bs[kk][nn] = to_f(w[(long long)(k0 + kk) * N + n0 + nn]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kChunk; ++kk) {
-      float a[4], bv[NPT];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = As[kk][warp * 4 + r];
-#pragma unroll
-      for (int c = 0; c < NPT; ++c) bv[c] = Bs[kk][lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < NPT; ++c) acc[r][c] += a[r] * bv[c];
-    }
-    __syncthreads();
-  }
+  expand_product<T, NPT>(x, w, As, Bs, acc, m0, n0, C, M);
 
   const int p1 = g >> 1, p2 = g & 1;
 #pragma unroll
@@ -235,13 +189,12 @@ static cudaError_t expand(const void* x, const void* w, const void* sc, const vo
   const auto* l = static_cast<const float*>(lb);
   auto* o = static_cast<T*>(out);
   dim3 grid((M + kRows - 1) / kRows, 4);
+  if (C % 64 || C / 64 < 1 || C / 64 > 16) return cudaErrorInvalidValue;
   switch (C / 64) {  // C/2 = 32 * NPT
-    case 1: patch_expand_fwd_kernel<T, 1><<<grid, 256, 0, st>>>(xt, wt, s, l, o, H, W, C, M); break;
-    case 2: patch_expand_fwd_kernel<T, 2><<<grid, 256, 0, st>>>(xt, wt, s, l, o, H, W, C, M); break;
-    case 4: patch_expand_fwd_kernel<T, 4><<<grid, 256, 0, st>>>(xt, wt, s, l, o, H, W, C, M); break;
-    case 8: patch_expand_fwd_kernel<T, 8><<<grid, 256, 0, st>>>(xt, wt, s, l, o, H, W, C, M); break;
-    case 16: patch_expand_fwd_kernel<T, 16><<<grid, 256, 0, st>>>(xt, wt, s, l, o, H, W, C, M); break;
-    default: return cudaErrorInvalidValue;
+#define SSA_CASE(n) \
+  case n: patch_expand_fwd_kernel<T, n><<<grid, 256, 0, st>>>(xt, wt, s, l, o, H, W, C, M); break;
+    SSA_EXPAND_NPT(SSA_CASE)
+#undef SSA_CASE
   }
   return cudaGetLastError();
 }

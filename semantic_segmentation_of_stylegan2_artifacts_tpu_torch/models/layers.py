@@ -27,7 +27,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import fused_patch, fused_refine_head, fused_window_attention, patch_ops
+from ..ops import (
+    fused_head,
+    fused_patch,
+    fused_refine_head,
+    fused_window_attention,
+    patch_ops,
+)
 from ..ops.window_attention import dropout_keep, keep_mask, shifted_window_attention
 
 LN_EPS = 1e-5
@@ -244,33 +250,40 @@ class PatchExpand(nn.Module):
 
 class FinalPatchExpandX4V2(nn.Module):
     """Linear(C, 16C) -> GELU -> x4 depth-to-space -> two 3x3 convs -> LN
-    (reference ``model_parts.py:437-476``).  ``fused`` (``TPU.FUSED_HEAD``)
-    runs everything after the expand projection in the CUDA kernel.  The
-    JAX package falls back to its GELU+depth-to-space kernel where the
-    refine-head gate fails (erf GELU, or C != 128); that kernel is not
-    ported yet, so the port raises there instead."""
+    (reference ``model_parts.py:437-476``).  With ``fused``
+    (``TPU.FUSED_HEAD``) the head takes the first of three routes whose
+    gate holds, as JAX ``models/layers.py:591-610`` does:
+
+    1. the refine-head kernel for everything after the expand projection,
+       where ``fused_refine_head.supported`` holds (tanh GELU, C = 128);
+    2. with tanh GELU (any other C), the GELU+depth-to-space kernel
+       (``ops/fused_head.py``), then the composed convs and LayerNorm;
+    3. otherwise (erf GELU, the strict-parity mode) the composed head.
+
+    Without ``fused`` the head is composed.  Parameter names are the same
+    on every route."""
 
     def __init__(self, dim: int, gelu_tanh: bool, fused: bool, dtype: torch.dtype):
         super().__init__()
-        if fused and not fused_refine_head.supported(dim, gelu_tanh):
-            raise NotImplementedError(
-                f"FUSED_HEAD with dim {dim}, GELU_TANH {gelu_tanh}: the JAX package "
-                "runs its fused_head kernel here, which is not ported yet")
         self.expand = nn.Linear(dim, 16 * dim, bias=False)
         self.refine1 = nn.Conv2d(dim, dim, 3, padding=1)
         self.refine2 = nn.Conv2d(dim, dim, 3, padding=1)
         self.norm = LayerNorm(dim, dtype)
         self.gelu_tanh = gelu_tanh
-        self.fused = fused
+        self.fused_refine = fused and fused_refine_head.supported(dim, gelu_tanh)
+        self.fused_gelu_d2s = fused and gelu_tanh and not self.fused_refine
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = linear(x, self.expand, self.dtype)
-        if self.fused:
+        if self.fused_refine:
             return fused_refine_head.fused_refine_head(
                 x.contiguous(), self.refine1.weight, self.refine1.bias,
                 self.refine2.weight, self.refine2.bias, self.norm.weight, self.norm.bias)
-        x = patch_ops.depth_to_space(gelu(x, self.gelu_tanh), 4)
+        if self.fused_gelu_d2s:
+            x = fused_head.fused_gelu_d2s4(x.contiguous())
+        else:
+            x = patch_ops.depth_to_space(gelu(x, self.gelu_tanh), 4)
         x = gelu(conv_nhwc(x, self.refine1, self.dtype), self.gelu_tanh)
         return self.norm(conv_nhwc(x, self.refine2, self.dtype))
 

@@ -35,10 +35,14 @@ LAUNCHES = {
     "window_attention": 0,
     "window_attention_bwd": 0,
     "patch_merge": 0,
+    "patch_merge_bwd": 0,
     "patch_expand": 0,
+    "patch_expand_bwd": 0,
     "refine_head": 0,
     "refine_head_res": 0,
     "refine_head_bwd": 0,
+    "gelu_d2s4": 0,
+    "gelu_d2s4_bwd": 0,
 }
 
 # C entry points: (name, number of pointer args, number of int args); every
@@ -47,9 +51,13 @@ _SIGNATURES = {
     "ssa_window_attention_fwd": (3, 9),
     "ssa_window_attention_bwd": (6, 10),
     "ssa_patch_merge_fwd": (5, 4),
+    "ssa_patch_merge_bwd": (13, 5),
     "ssa_patch_expand_fwd": (5, 4),
+    "ssa_patch_expand_bwd": (12, 5),
     "ssa_refine_head_fwd": (11, 3),
     "ssa_refine_head_bwd": (20, 4),
+    "ssa_gelu_d2s4_fwd": (2, 4),
+    "ssa_gelu_d2s4_bwd": (3, 4),
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,19 +1,30 @@
-"""PatchMerging / PatchExpand forwards, each one kernel on the card.
+"""PatchMerging / PatchExpand, forward and backward each one kernel call on
+the card.
 
 Counterpart of the JAX package's ``ops/fused_patch.py``.  Merge is
 ``Linear(LN(merge_2x2(x)))``: ``(B,H,W,C) -> (B,H/2,W/2,2C)``; expand is
 ``LN(depth_to_space(Linear(x), 2))``: ``(B,H,W,C) -> (B,2H,2W,C/2)``;
 both bias-free, LayerNorm with float32 fast-variance stats clamped at 0
 (``models/layers.py:58-69`` of the JAX package).  The kernels live in
-``csrc/fused_patch.cu``.  The plain versions below follow the kernels'
-numerics (merge: the LN output is rounded to the input dtype before the
-product; expand: the product is rounded to the input dtype before the
-LN) and run for CPU tensors only.
+``csrc/fused_patch.cu`` (forwards) and ``csrc/fused_patch_bwd.cu``
+(backwards).
 
-The backward kernels (JAX ``_merge_bwd_kernel``/``_expand_bwd_kernel``)
-are not ported yet: on the card, a call that autograd would record
-raises instead of returning an output with no gradient.  Training runs
-with ``TPU.FUSED_PATCH: false`` (the composed ops under autograd).
+The plain versions below follow the kernels' numerics and run for CPU
+tensors only.  Forwards: merge rounds the LN output to the input dtype
+before the product; expand rounds the product before the LN.  Backwards
+work from the saved ``x`` alone (JAX ``_merge_bwd_kernel`` /
+``_expand_bwd_kernel``): merge recomputes the LN, rounds ``n``, takes
+``dW = n^T dy`` in float32 and ``dn = dy W^T`` rounded, ``dscale = sum
+dn*xhat``, ``dbias = sum dn`` and the LN backward rounded into ``dx``;
+expand recomputes ``z = x W`` rounded, each group's LN stats, ``dz`` = the
+groups' LN backwards rounded, ``dW = x^T dz`` and ``dx = dz W^T`` rounded.
+
+:func:`fused_patch_merge` and :func:`fused_patch_expand` are
+``torch.autograd.Function``s that save only ``x`` (and the parameters they
+were given).  As in the JAX package, which casts the weight to the compute
+dtype before the kernel, the weight gradient is rounded to that dtype
+before it reaches the float32 parameter; the LayerNorm parameters'
+gradients stay float32.
 """
 
 from __future__ import annotations
@@ -21,17 +32,33 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .patch_ops import depth_to_space, merge_2x2
+from .patch_ops import depth_to_space, merge_2x2, space_to_depth, unmerge_2x2
 
 LN_EPS = 1e-5
+# weight-gradient blocks to aim for (four per SM of an H100); mirrors the
+# split-K tiling of csrc/fused_patch_bwd.cu (32 x 128 or 32 x 32 tiles)
+_DW_TARGET_BLOCKS = 528
+_DW_MIN_ROWS = 256
+
+
+def _ln_stats(xf: torch.Tensor):
+    """float32 fast-variance LayerNorm over the last axis: ``(xhat, rsig)``."""
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+    rsig = torch.rsqrt(var + LN_EPS)
+    return (xf - mean) * rsig, rsig
 
 
 def _ln_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
-    xhat = (xf - mean) * torch.rsqrt(var + LN_EPS)
-    return xhat * scale.float() + bias.float()
+    return _ln_stats(x.float())[0] * scale.float() + bias.float()
+
+
+def _ln_bwd(dn, xhat, rsig, scale):
+    """LayerNorm VJP in float32 (JAX ``fused_patch._ln_bwd``)."""
+    dxh = dn * scale
+    m1 = dxh.mean(dim=-1, keepdim=True)
+    m2 = (dxh * xhat).mean(dim=-1, keepdim=True)
+    return (dxh - m1 - xhat * m2) * rsig
 
 
 def patch_merge_reference(x, ln_scale, ln_bias, weight):
@@ -48,11 +75,34 @@ def patch_expand_reference(x, weight, ln_scale, ln_bias):
     return _ln_f32(depth_to_space(z, 2), ln_scale, ln_bias).to(dt)
 
 
-def _no_grad_guard(name: str, *tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} kernel has no backward yet (the patch backward kernels come "
-            "in slice 3 of the port); train with TPU.FUSED_PATCH: false")
+def patch_merge_bwd_reference(x, dy, ln_scale, ln_bias, weight):
+    """Plain backward: ``(dx, dscale, dbias, dweight)``, dx in x's dtype, the
+    rest float32, dweight in torch layout ``(2C, 4C)``."""
+    dt = x.dtype
+    b, h, w, c = x.shape
+    xhat, rsig = _ln_stats(merge_2x2(x).reshape(-1, 4 * c).float())
+    n = (xhat * ln_scale.float() + ln_bias.float()).to(dt).float()
+    dyf = dy.reshape(-1, 2 * c).float()
+    dw = dyf.t() @ n
+    dn = (dyf @ weight.to(dt).float()).to(dt).float()
+    dm = _ln_bwd(dn, xhat, rsig, ln_scale.float()).to(dt)
+    dx = unmerge_2x2(dm.reshape(b, h // 2, w // 2, 4 * c))
+    return dx, (dn * xhat).sum(0), dn.sum(0), dw
+
+
+def patch_expand_bwd_reference(x, dy, weight, ln_scale):
+    """Plain backward: ``(dx, dweight, dscale, dbias)``, dx in x's dtype, the
+    rest float32, dweight in torch layout ``(2C, C)``."""
+    dt = x.dtype
+    b, h, w, c = x.shape
+    xf = x.reshape(-1, c).float()
+    wf = weight.to(dt).float()
+    z = (xf @ wf.t()).to(dt).float().reshape(-1, 4, c // 2)  # groups g = 2*p1 + p2
+    xhat, rsig = _ln_stats(z)
+    dn = space_to_depth(dy, 2).reshape(-1, 4, c // 2).float()
+    dz = _ln_bwd(dn, xhat, rsig, ln_scale.float()).reshape(-1, 2 * c).to(dt).float()
+    dx = (dz @ wf).to(dt).reshape(b, h, w, c)
+    return dx, dz.t() @ xf, (dn * xhat).sum((0, 1)), dn.sum((0, 1))
 
 
 def merge_supported(shape) -> bool:
@@ -61,19 +111,27 @@ def merge_supported(shape) -> bool:
 
 
 def expand_supported(shape) -> bool:
+    """C/2 a multiple of 32 up to 512."""
     c = shape[-1]
-    return c % 64 == 0 and (c // 64) in (1, 2, 4, 8, 16)
+    return c % 64 == 0 and 1 <= c // 64 <= 16
 
 
-def fused_patch_merge(x: torch.Tensor, ln_scale: torch.Tensor,
-                      ln_bias: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """``(B,H,W,C) -> (B,H/2,W/2,2C)``; plain on the CPU, kernel on the card."""
+def dw_chunk_rows(m: int, k: int, n: int) -> int:
+    """Rows per chunk of the split-K weight gradient ``(k, n)`` over ``m``
+    rows: enough chunks that the blocks fill the card, each chunk at least
+    ``_DW_MIN_ROWS`` rows, a multiple of 16."""
+    tiles = (k // 32) * (n // (128 if n % 128 == 0 else 32))
+    chunks = max(1, min(-(-_DW_TARGET_BLOCKS // tiles), -(-m // _DW_MIN_ROWS)))
+    rows = -(-m // chunks)
+    return -(-rows // 16) * 16
+
+
+def _merge_fwd(x, ln_scale, ln_bias, weight):
     if x.device.type == "cpu":
         return patch_merge_reference(x, ln_scale, ln_bias, weight)
     b, h, w, c = x.shape
     if not merge_supported(x.shape):
         raise ValueError(f"patch merge kernel: unsupported shape {tuple(x.shape)}")
-    _no_grad_guard("patch merge", x, ln_scale, ln_bias, weight)
     dt = x.dtype
     _build.check_cuda(x, "x")
     wk = weight.to(dt).t().contiguous()  # (4C, 2C), input-major
@@ -88,15 +146,47 @@ def fused_patch_merge(x: torch.Tensor, ln_scale: torch.Tensor,
     return out
 
 
-def fused_patch_expand(x: torch.Tensor, weight: torch.Tensor,
-                       ln_scale: torch.Tensor, ln_bias: torch.Tensor) -> torch.Tensor:
-    """``(B,H,W,C) -> (B,2H,2W,C/2)``; plain on the CPU, kernel on the card."""
+def patch_merge_bwd(x, dy, ln_scale, ln_bias, weight):
+    """Backward wrapper: plain version on the CPU, the kernel (one count,
+    seven CUDA launches) on the card.  Returns ``(dx, dscale, dbias,
+    dweight)`` as :func:`patch_merge_bwd_reference`."""
+    if x.device.type == "cpu":
+        return patch_merge_bwd_reference(x, dy, ln_scale, ln_bias, weight)
+    b, h, w, c = x.shape
+    if not merge_supported(x.shape):
+        raise ValueError(f"patch merge backward kernel: unsupported shape {tuple(x.shape)}")
+    dt, dev = x.dtype, x.device
+    m, k, n = b * (h // 2) * (w // 2), 4 * c, 2 * c
+    wt = weight.to(dt).contiguous()  # (2C, 4C), torch layout
+    sc = ln_scale.float().contiguous()
+    lb = ln_bias.float().contiguous()
+    _build.check_cuda(x, "x")
+    _build.check_cuda(dy, "dy", (b, h // 2, w // 2, n), dt)
+    _build.check_cuda(wt, "weight", (n, k), dt)
+    _build.check_cuda(sc, "ln_scale", (k,))
+    _build.check_cuda(lb, "ln_bias", (k,))
+    rows = dw_chunk_rows(m, k, n)
+    chunks = -(-m // rows)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dn = torch.empty((m, k), dtype=dt, device=dev)
+    stats = torch.empty((m, 2), **f32)
+    part_dw = torch.empty((chunks, k, n), **f32)
+    part_cs = torch.empty((chunks, 2, k), **f32)
+    dx = torch.empty_like(x)
+    dw = torch.empty((k, n), **f32)  # input-major
+    dsc, dlb = torch.empty(k, **f32), torch.empty(k, **f32)
+    _build.launch("patch_merge_bwd", "ssa_patch_merge_bwd",
+                  [x, dy, sc, lb, wt, dn, stats, part_dw, part_cs, dx, dw, dsc, dlb],
+                  [b, h, w, c, rows], dt)
+    return dx, dsc, dlb, dw.t()
+
+
+def _expand_fwd(x, weight, ln_scale, ln_bias):
     if x.device.type == "cpu":
         return patch_expand_reference(x, weight, ln_scale, ln_bias)
     b, h, w, c = x.shape
     if not expand_supported(x.shape):
         raise ValueError(f"patch expand kernel: unsupported shape {tuple(x.shape)}")
-    _no_grad_guard("patch expand", x, weight, ln_scale, ln_bias)
     dt = x.dtype
     _build.check_cuda(x, "x")
     wk = weight.to(dt).t().contiguous()  # (C, 2C), input-major
@@ -109,3 +199,85 @@ def fused_patch_expand(x: torch.Tensor, weight: torch.Tensor,
     _build.launch("patch_expand", "ssa_patch_expand_fwd", [x, wk, sc, lb, out],
                   [b, h, w, c], dt)
     return out
+
+
+def patch_expand_bwd(x, dy, weight, ln_scale):
+    """Backward wrapper: plain version on the CPU, the kernel (one count,
+    six CUDA launches) on the card.  Returns ``(dx, dweight, dscale,
+    dbias)`` as :func:`patch_expand_bwd_reference`."""
+    if x.device.type == "cpu":
+        return patch_expand_bwd_reference(x, dy, weight, ln_scale)
+    b, h, w, c = x.shape
+    if not expand_supported(x.shape):
+        raise ValueError(f"patch expand backward kernel: unsupported shape {tuple(x.shape)}")
+    dt, dev = x.dtype, x.device
+    m = b * h * w
+    wk = weight.to(dt).t().contiguous()  # (C, 2C), input-major, for z
+    wt = weight.to(dt).contiguous()  # (2C, C), torch layout, for dx
+    sc = ln_scale.float().contiguous()
+    _build.check_cuda(x, "x")
+    _build.check_cuda(dy, "dy", (b, 2 * h, 2 * w, c // 2), dt)
+    _build.check_cuda(wk, "weight", (c, 2 * c), dt)
+    _build.check_cuda(sc, "ln_scale", (c // 2,))
+    rows = dw_chunk_rows(m, c, 2 * c)
+    chunks = -(-m // rows)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dz = torch.empty((m, 2 * c), dtype=dt, device=dev)
+    part_ln = torch.empty((4 * -(-m // 32), 2, c // 2), **f32)
+    part_dw = torch.empty((chunks, c, 2 * c), **f32)
+    dx = torch.empty_like(x)
+    dw = torch.empty((c, 2 * c), **f32)  # input-major
+    dsc, dlb = torch.empty(c // 2, **f32), torch.empty(c // 2, **f32)
+    _build.launch("patch_expand_bwd", "ssa_patch_expand_bwd",
+                  [x, dy, wk, wt, sc, dz, part_ln, part_dw, dx, dw, dsc, dlb],
+                  [b, h, w, c, rows], dt)
+    return dx, dw.t(), dsc, dlb
+
+
+def _weight_grad(dw: torch.Tensor, compute: torch.dtype, param: torch.dtype) -> torch.Tensor:
+    """The weight was cast to the compute dtype before the kernel, so its
+    gradient is rounded to that dtype on its way back (JAX
+    ``fused_patch.py:278-279, 423-424``)."""
+    return dw.to(compute).to(param).contiguous()
+
+
+class _PatchMerge(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, weight):
+        ctx.save_for_backward(x, ln_scale, ln_bias, weight)
+        return _merge_fwd(x, ln_scale, ln_bias, weight)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, sc, lb, w = ctx.saved_tensors
+        dx, dsc, dlb, dw = patch_merge_bwd(x, dy.contiguous(), sc, lb, w)
+        return dx, dsc.to(sc.dtype), dlb.to(lb.dtype), _weight_grad(dw, x.dtype, w.dtype)
+
+
+class _PatchExpand(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, ln_scale, ln_bias):
+        ctx.save_for_backward(x, weight, ln_scale, ln_bias)
+        return _expand_fwd(x, weight, ln_scale, ln_bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, sc, lb = ctx.saved_tensors
+        dx, dw, dsc, dlb = patch_expand_bwd(x, dy.contiguous(), w, sc)
+        return dx, _weight_grad(dw, x.dtype, w.dtype), dsc.to(sc.dtype), dlb.to(lb.dtype)
+
+
+def fused_patch_merge(x: torch.Tensor, ln_scale: torch.Tensor,
+                      ln_bias: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``(B,H,W,C) -> (B,H/2,W/2,2C)``, differentiable in every input; plain
+    versions on the CPU, the kernels on the card.  ``weight`` is torch
+    layout ``(2C, 4C)``."""
+    return _PatchMerge.apply(x, ln_scale, ln_bias, weight)
+
+
+def fused_patch_expand(x: torch.Tensor, weight: torch.Tensor,
+                       ln_scale: torch.Tensor, ln_bias: torch.Tensor) -> torch.Tensor:
+    """``(B,H,W,C) -> (B,2H,2W,C/2)``, differentiable in every input; plain
+    versions on the CPU, the kernels on the card.  ``weight`` is torch
+    layout ``(2C, C)``."""
+    return _PatchExpand.apply(x, weight, ln_scale, ln_bias)

@@ -25,12 +25,11 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .patch_ops import depth_to_space
+from .fused_head import gelu_tanh_grad
+from .patch_ops import depth_to_space, space_to_depth
 
 LN_EPS = 1e-5
 CHANNELS = 128
-_SQRT_2_OVER_PI = 0.7978845608028654
-_KAPPA = 0.044715
 
 # Mirrors of csrc/fused_refine_head.cu's tiling, to size the partial sums.
 _CONV_TILE = {torch.bfloat16: 128, torch.float32: 64}  # pixels per conv block
@@ -46,21 +45,6 @@ def supported(dim: int, gelu_tanh: bool) -> bool:
 
 def _gelu(x):
     return F.gelu(x, approximate="tanh")
-
-
-def _gelu_grad(x):
-    """Derivative of tanh-GELU, float32 (JAX ``_gelu_grad_f32``)."""
-    x2 = x * x
-    t = torch.tanh(_SQRT_2_OVER_PI * (x + _KAPPA * x * x2))
-    du = _SQRT_2_OVER_PI * (1.0 + 3.0 * _KAPPA * x2)
-    return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * du
-
-
-def _space_to_depth4(x):
-    """Inverse of ``depth_to_space(., 4)``: ``(B,4H,4W,C) -> (B,H,W,16C)``."""
-    b, h4, w4, c = x.shape
-    x = x.reshape(b, h4 // 4, 4, w4 // 4, 4, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, h4 // 4, w4 // 4, 16 * c)
 
 
 def _xp(y):
@@ -111,12 +95,12 @@ def refine_head_bwd_reference(y, pre, a2, dout, w1, w2, gamma):
     h1 = _gelu(pre.float()).to(dt).float().permute(0, 3, 1, 2)
     dw2 = torch.nn.grad.conv2d_weight(h1, w2.shape, da2s, padding=1)
     dh1 = F.conv_transpose2d(da2s, w2.to(dt).float(), padding=1)
-    da1 = dh1 * _gelu_grad(pre.float()).permute(0, 3, 1, 2)
+    da1 = dh1 * gelu_tanh_grad(pre.float()).permute(0, 3, 1, 2)
     db1 = da1.sum(dim=(0, 2, 3))
     da1s = da1.to(dt).float()
     dw1 = torch.nn.grad.conv2d_weight(_xp(y), w1.shape, da1s, padding=1)
     dxp = F.conv_transpose2d(da1s, w1.to(dt).float(), padding=1).permute(0, 2, 3, 1)
-    dy = (_space_to_depth4(dxp) * _gelu_grad(y.float())).to(dt)
+    dy = (space_to_depth(dxp, 4) * gelu_tanh_grad(y.float())).to(dt)
     return dy, dw1, db1, dw2, db2, dgamma, dbeta
 
 

@@ -18,6 +18,15 @@ def merge_2x2(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, h // 2, w // 2, 4 * c)
 
 
+def unmerge_2x2(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`merge_2x2`: ``(B, H/2, W/2, 4C) -> (B, H, W, C)``."""
+    b, h2, w2, c4 = x.shape
+    c = c4 // 4
+    x = x.reshape(b, h2, w2, 2, 2, c)  # (b, h2, w2, j, i, c)
+    x = x.permute(0, 1, 4, 2, 3, 5)  # (b, h2, i, w2, j, c)
+    return x.reshape(b, 2 * h2, 2 * w2, c)
+
+
 def depth_to_space(x: torch.Tensor, p: int) -> torch.Tensor:
     """``(B, H, W, p*p*C) -> (B, p*H, p*W, C)``, channels p1-major."""
     b, h, w, cpp = x.shape
@@ -27,3 +36,11 @@ def depth_to_space(x: torch.Tensor, p: int) -> torch.Tensor:
     x = x.reshape(b, h, w, p, p, c)  # (b, h, w, p1, p2, c)
     x = x.permute(0, 1, 3, 2, 4, 5)  # (b, h, p1, w, p2, c)
     return x.reshape(b, h * p, w * p, c)
+
+
+def space_to_depth(x: torch.Tensor, p: int) -> torch.Tensor:
+    """Inverse of :func:`depth_to_space`: ``(B, p*H, p*W, C) -> (B, H, W, p*p*C)``."""
+    b, hp, wp, c = x.shape
+    x = x.reshape(b, hp // p, p, wp // p, p, c)  # (b, h, p1, w, p2, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)  # (b, h, w, p1, p2, c)
+    return x.reshape(b, hp // p, wp // p, p * p * c)

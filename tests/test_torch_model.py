@@ -1,7 +1,10 @@
 """Port's MS-UNet vs the JAX package's, f32 on the CPU.
 
 * The weight bridge: flax -> port -> flax is bit-exact, and a port state
-  dict loads ``strict=True`` into a fresh port model.
+  dict loads ``strict=True`` into a fresh port model; at the published
+  Swin-T width (embed 96, depths 2/2/6/2, heads 3/6/12/24) the port's
+  seeded weights map onto the JAX model's parameter tree shape for shape
+  and come back bit-exact.
 * Composed-path logits against JAX ``MSUNet`` at ``tests/test_model.py``'s
   SMALL config, for erf and tanh GELU.
 * Kernel-knob logits with all three knobs and tanh GELU on, JAX kernels
@@ -26,6 +29,7 @@ from semantic_segmentation_of_stylegan2_artifacts_tpu.ops import (
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import (
     MSUNet,
     MSUNetSys,
+    init_weights,
 )
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.weights import (
     flax_to_state_dict,
@@ -35,6 +39,8 @@ from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.weights impor
 SMALL = dict(img_size=64, embed_dim=16, depths=(2, 2, 4, 2), num_heads=(2, 2, 2, 2),
              window_size=4)
 KERNEL = dict(img_size=32, embed_dim=128, depths=(1, 1, 1, 1), num_heads=(2, 2, 4, 4),
+              window_size=7)
+SWIN_T = dict(img_size=32, embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24),
               window_size=7)
 ATOL = 5e-4
 
@@ -81,6 +87,25 @@ def test_bridge_round_trip_is_bit_exact(small_params):
     fresh.load_state_dict(sd, strict=True)
     again = MSUNetSys(**SMALL)
     again.load_state_dict(fresh.state_dict(), strict=True)
+
+
+def test_bridge_carries_swin_t_width():
+    model = MSUNetSys(**SWIN_T)
+    init_weights(model, 120)
+    sd = model.state_dict()
+    tree = state_dict_to_flax(sd)
+    jm = JaxMSUNet(**SWIN_T)
+    shapes = jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0)},
+                                            jnp.zeros((1, 32, 32, 3)), True))["params"]
+    want = {jax.tree_util.keystr(k): v.shape
+            for k, v in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    got = {jax.tree_util.keystr(k): v.shape
+           for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    assert got == want
+    back = MSUNetSys(**SWIN_T)
+    back.load_state_dict(flax_to_state_dict(tree), strict=True)
+    for k, v in back.state_dict().items():
+        assert torch.equal(v, sd[k]), k
 
 
 @pytest.mark.parametrize("gelu_tanh", [False, True])

@@ -10,7 +10,12 @@ equal uint8 batches, drop-path 0 so no noise is drawn:
   mode; the port's ``autograd.Function`` with its plain versions), with
   accumulation 1 and 2;
 * embed 128 at 32^2 with the attention and head knobs on, where the
-  refine-head path runs (its training forward and backward).
+  refine-head path runs (its training forward and backward);
+* embed 128 at 32^2 with ``FUSED_PATCH`` on (the config of
+  ``tests/test_fused_patch.py::test_train_step_with_fused_patch``): the
+  merge and expand ``autograd.Function``s, forward and backward;
+* embed 16 with ``FUSED_HEAD`` and tanh GELU, where the refine-head gate
+  fails and both packages run the GELU+depth-to-space kernel.
 
 Tolerances: the per-step loss 1e-5 abs (a float32 mean over the batch's
 pixels after 0-2 updates); the final params 1e-5 abs for 99.9 % of the
@@ -31,6 +36,8 @@ from semantic_segmentation_of_stylegan2_artifacts_tpu.core.config import (
 )
 from semantic_segmentation_of_stylegan2_artifacts_tpu.models import MSUNet as JaxMSUNet
 from semantic_segmentation_of_stylegan2_artifacts_tpu.ops import (
+    fused_head as jax_fh,
+    fused_patch as jax_fp,
     fused_refine_head as jax_frh,
     fused_window_attention as jax_fwa,
 )
@@ -53,7 +60,7 @@ STEPS = 3
 
 @pytest.fixture(autouse=True)
 def _interpret(monkeypatch):
-    for mod in (jax_fwa, jax_frh):
+    for mod in (jax_fwa, jax_frh, jax_fp, jax_fh):
         monkeypatch.setattr(mod, "INTERPRET", True)
 
 
@@ -103,6 +110,15 @@ def test_train_steps_match_jax_attention_kernel(acc):
 def test_train_steps_match_jax_refine_head_kernel():
     _run(HEAD, dict(use_pallas=True, fused_head=True),
          dict(fused_attention=True, fused_head=True), 1, batch=1)
+
+
+def test_train_steps_match_jax_fused_patch():
+    _run(HEAD, dict(use_fused_patch=True), dict(fused_patch=True), 1, batch=1)
+
+
+def test_train_steps_match_jax_gelu_d2s_head():
+    _run(TINY, dict(use_pallas=True, fused_head=True),
+         dict(fused_attention=True, fused_head=True), 1)
 
 
 def test_eval_step_matches_jax():
