@@ -12,7 +12,10 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    C = 96, expand at C/2 = 96/192/384, the GELU+depth-to-space head at
    C = 96), in float32 and in bfloat16, each error beside its stated
    tolerance, and times kernel, plain version and (for attention) one
-   ``scaled_dot_product_attention`` call;
+   ``scaled_dot_product_attention`` call; the refine head also at two
+   shapes whose tiles are ragged on every side, ``y (3, 13, 21, 2048)`` and
+   ``y (1, 5, 3, 2048)`` (inference forward, training forward, backward
+   and a repeated backward's bits);
 3. drives the predict path of the full Swin-B MS-UNet (512^2, batch 8,
    bfloat16, all kernel knobs on, seeded weights) through
    ``make_predict_step`` with the launch counts zeroed just before and
@@ -24,9 +27,12 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    forward and backward, patch merge and expand backwards, the
    GELU+depth-to-space backward) against their plain versions at the
    shapes of the 512^2 batch-8 train steps, in float32 and bfloat16 (a
-   repeated patch backward must give the same bits), and the plain
-   backwards against ``torch.autograd`` of the plain forwards, and times
-   kernel, plain version and yardstick;
+   repeated patch or refine-head backward must give the same bits), and
+   the plain backwards against ``torch.autograd`` of the plain forwards,
+   and times kernel, plain version and yardstick; the refine head's
+   forward and backward are also timed part by part (each CUDA kernel of
+   one call, by the profiler), beside the composed cuDNN head forward
+   alone and forward plus backward;
 6. drives the train step of the full Swin-B MS-UNet with every
    ``config.yaml`` knob on (bench.py's step: 512^2, batch 8, bf16 compute,
    f32 params, attention, head and patch kernels, drop-path 0.1) through
@@ -265,9 +271,9 @@ def check_attention_bwd(fwa, wa, gen, stages=STAGES, rep=None, main_path=True) -
     return rep
 
 
-def refine_inputs(gen, batch):
-    c, ht = 128, IMG // 4
-    y32 = torch.randn((batch, ht, ht, 16 * c), generator=gen, device="cuda") * 0.5
+def refine_inputs(gen, batch, ht=IMG // 4, wt=IMG // 4):
+    c = 128
+    y32 = torch.randn((batch, ht, wt, 16 * c), generator=gen, device="cuda") * 0.5
     p = [torch.randn((c, c, 3, 3), generator=gen, device="cuda") * 0.03,
          0.1 * torch.randn(c, generator=gen, device="cuda"),
          torch.randn((c, c, 3, 3), generator=gen, device="cuda") * 0.03,
@@ -275,6 +281,12 @@ def refine_inputs(gen, batch):
          1 + 0.1 * torch.randn(c, generator=gen, device="cuda"),
          0.1 * torch.randn(c, generator=gen, device="cuda")]
     return y32, p
+
+
+BWD_NAMES = ("dy", "dw1", "db1", "dw2", "db2", "dgamma", "dbeta")
+# shapes whose conv tiles (8 x 16 pixels in bfloat16, 64-pixel row segments
+# in float32), LayerNorm blocks and weight-gradient chunks are all ragged
+RAGGED = [(3, 13, 21), (1, 5, 3)]
 
 
 def check_refine_train(frh, gen) -> tuple:
@@ -295,9 +307,13 @@ def check_refine_train(frh, gen) -> tuple:
         del got, want
         torch.cuda.empty_cache()
         args = (y, pre, a2, dout, p[0], p[2], p[4])
-        bwd_errs[dt] = multi_err(f"bwd {dt}", frh._bwd_kernel(*args),
-                                 frh.refine_head_bwd_reference(*args),
-                                 ("dy", "dw1", "db1", "dw2", "db2", "dgamma", "dbeta"))
+        got = frh._bwd_kernel(*args)
+        bwd_errs[dt] = multi_err(f"bwd {dt}", got, frh.refine_head_bwd_reference(*args),
+                                 BWD_NAMES)
+        # every cross-block sum is taken in a fixed order
+        if not all(torch.equal(a, b) for a, b in zip(got, frh._bwd_kernel(*args))):
+            raise AssertionError(f"refine_head_bwd {dt}: a repeated call gave other bits")
+        del got
         saved[dt] = args
         torch.cuda.empty_cache()
     y, pre, a2, dout = saved["bf16"][:4]
@@ -316,24 +332,62 @@ def check_refine_train(frh, gen) -> tuple:
     b_b, by_b = bound_ms(bwd_bytes, 4 * conv)
     res.add(f"y{tuple(y.shape)}", 1, fwd_errs, ms_f, plain_f, b_f, by_f)
     bwd.add(f"y{tuple(y.shape)}", 1, bwd_errs, ms_b, plain_b, b_b, by_b)
+    for what, fn in (("training forward", lambda: frh._fwd_kernel(y, prm, True)),
+                     ("backward", lambda: frh._bwd_kernel(*args))):
+        print(f"  refine head {what} bf16 by part (one call, profiler):")
+        for part_ms, count, key in kernel_times(fn):
+            if "ssa::" in key:
+                print(f"    {part_ms:8.4f} ms x{count} {key[:70]}")
     # context, not a yardstick: no single PyTorch call computes the head;
     # the composed cuDNN path (GELU, depth-to-space, two convs, LayerNorm)
     # forward + backward in bf16
     w = [t.bfloat16().requires_grad_() for t in p]
     yy = y.detach().requires_grad_()
 
-    def composed():
+    def composed_fwd():
         x = F.gelu(yy.float(), approximate="tanh").bfloat16()
         x = x.reshape(B, IMG // 4, IMG // 4, 4, 4, c).permute(0, 5, 1, 3, 2, 4).reshape(
             B, c, IMG, IMG)
         x = F.gelu(F.conv2d(x, w[0], w[1], padding=1), approximate="tanh")
         x = F.conv2d(x, w[2], w[3], padding=1).permute(0, 2, 3, 1)
-        out = F.layer_norm(x, (c,), w[4], w[5])
-        torch.autograd.grad(out, (yy, *w), dout)
+        return F.layer_norm(x, (c,), w[4], w[5])
 
-    print(f"  refine head composed cuDNN path fwd+bwd (context): "
-          f"{cuda_ms(composed, 3):.4f} ms")
+    def composed_fwd_alone():
+        with torch.no_grad():
+            composed_fwd()
+
+    both = cuda_ms(lambda: torch.autograd.grad(composed_fwd(), (yy, *w), dout), 3)
+    print(f"  refine head composed cuDNN path (context): fwd alone "
+          f"{cuda_ms(composed_fwd_alone, 3):.4f} ms, fwd+bwd {both:.4f} ms; "
+          f"kernels fwd+bwd {ms_f + ms_b:.4f} ms against a bound of {b_f + b_b:.4f} ms")
     return res, bwd
+
+
+def check_refine_ragged(frh, gen) -> None:
+    """Inference forward, training forward, backward and a repeated
+    backward's bits at the ragged shapes, against the plain versions."""
+    for shape in RAGGED:
+        y32, p = refine_inputs(gen, *shape)
+        for dt in ("f32", "bf16"):
+            y = y32 if dt == "f32" else y32.bfloat16()
+            label = f"y{tuple(y.shape)} {dt}"
+            want = frh.refine_head_res_reference(y, *p)
+            rels = {"refine_head": rel_err(frh.fused_refine_head(y, *p), want[0])[1]}
+            _, rels["refine_head_res"] = multi_err(
+                f"res fwd {label}", frh._fwd_kernel(y, frh._prep(y, *p), True), want,
+                ("out", "pre", "a2"))
+            _, pre, a2 = want
+            dout = torch.randn(pre.shape, generator=gen, device="cuda").to(y.dtype)
+            args = (y, pre, a2, dout, p[0], p[2], p[4])
+            got = frh._bwd_kernel(*args)
+            _, rels["refine_head_bwd"] = multi_err(
+                f"bwd {label}", got, frh.refine_head_bwd_reference(*args), BWD_NAMES)
+            if not all(torch.equal(a, b) for a, b in zip(got, frh._bwd_kernel(*args))):
+                raise AssertionError(f"refine_head_bwd {label}: a repeated call gave other bits")
+            for name, rel in rels.items():
+                print(f"  {name} {label}: rel {rel:.3e} (tol {TOL[name][dt]:g})")
+                if not rel <= TOL[name][dt]:
+                    raise AssertionError(f"{name} {label}: {rel:.3e} > {TOL[name][dt]:g}")
 
 
 def check_plain_backwards(fwa, frh, fp, fh, wa, gen) -> None:
@@ -580,14 +634,8 @@ def check_gelu_d2s4(fh, gen) -> tuple:
 
 def check_refine_head(frh, gen) -> KernelReport:
     rep = KernelReport("refine_head", "fused_refine_head.cu", "fused_refine_head.py:455")
-    c, ht = 128, IMG // 4
-    y32 = torch.randn((B, ht, ht, 16 * c), generator=gen, device="cuda") * 0.5
-    p = [torch.randn((c, c, 3, 3), generator=gen, device="cuda") * 0.03,
-         0.1 * torch.randn(c, generator=gen, device="cuda"),
-         torch.randn((c, c, 3, 3), generator=gen, device="cuda") * 0.03,
-         0.1 * torch.randn(c, generator=gen, device="cuda"),
-         1 + 0.1 * torch.randn(c, generator=gen, device="cuda"),
-         0.1 * torch.randn(c, generator=gen, device="cuda")]
+    c = 128
+    y32, p = refine_inputs(gen, B)
     errs = {dt: rel_err(frh.fused_refine_head(y, *p), frh.refine_head_reference(y, *p))
             for dt, y in (("f32", y32), ("bf16", y32.to(torch.bfloat16)))}
     y = y32.to(torch.bfloat16)
@@ -600,17 +648,19 @@ def check_refine_head(frh, gen) -> KernelReport:
     return rep
 
 
-def profile_forward(step, images, fwd_ms: float, top: int = 12,
-                    what: str = "forward") -> None:
-    """Device time by kernel over one call of ``step(images)`` (a forward,
-    or a train step) by torch.profiler (CUPTI), beside its time from CUDA
-    events."""
+def kernel_times(fn) -> list:
+    """(device ms, launches, name) of every CUDA kernel of one call of
+    ``fn()``, by torch.profiler (CUPTI), in launch order of first use."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(images)
+        # a profile loses its first kernel (the tracer is still starting):
+        # spend that on a throw-away launch
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        fn()
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -620,6 +670,14 @@ def profile_forward(step, images, fwd_ms: float, top: int = 12,
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
         rows.append((dev_us / 1e3, ev.count, ev.key))
+    return rows
+
+
+def profile_forward(step, images, fwd_ms: float, top: int = 12,
+                    what: str = "forward") -> None:
+    """Device time by kernel over one call of ``step(images)`` (a forward,
+    or a train step), beside its time from CUDA events."""
+    rows = kernel_times(lambda: step(images))
     if not rows:
         print("profile: the profiler saw no device time")
         return
@@ -835,6 +893,7 @@ def main() -> int:
     merge, expand = check_patch(fused_patch, gen)
     refine = check_refine_head(fused_refine_head, gen)
     torch.cuda.empty_cache()
+    check_refine_ragged(fused_refine_head, gen)
     gelu_f, gelu_b = check_gelu_d2s4(fused_head, gen)
     torch.cuda.empty_cache()
 

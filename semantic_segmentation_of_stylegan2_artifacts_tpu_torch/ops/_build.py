@@ -55,7 +55,7 @@ _SIGNATURES = {
     "ssa_patch_expand_fwd": (5, 4),
     "ssa_patch_expand_bwd": (12, 5),
     "ssa_refine_head_fwd": (11, 3),
-    "ssa_refine_head_bwd": (20, 4),
+    "ssa_refine_head_bwd": (19, 4),
     "ssa_gelu_d2s4_fwd": (2, 4),
     "ssa_gelu_d2s4_bwd": (3, 4),
 }

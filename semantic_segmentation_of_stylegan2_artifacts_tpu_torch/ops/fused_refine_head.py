@@ -7,7 +7,8 @@ inference forward (``_fwd_kernel``), its training forward
 GELU and ``a2`` = conv2 + b2 before the LayerNorm, both in the storage
 dtype) and its backward (``_bwd_kernel``, no conv recomputed).  The
 kernels live in ``csrc/fused_refine_head.cu`` and take C = 128 with tanh
-GELU, the deployment head.
+GELU, the deployment head, at any ``(B, Ht, Wt)``: bfloat16 on the tensor
+cores (``wgmma``), float32 on the CUDA cores.
 
 The plain versions carry the kernels' numerics: conv input GELU'd in
 float32 and rounded to the storage dtype, each conv accumulated in
@@ -31,10 +32,20 @@ from .patch_ops import depth_to_space, space_to_depth
 LN_EPS = 1e-5
 CHANNELS = 128
 
-# Mirrors of csrc/fused_refine_head.cu's tiling, to size the partial sums.
-_CONV_TILE = {torch.bfloat16: 128, torch.float32: 64}  # pixels per conv block
+# Mirrors of csrc/fused_refine_head.cu's tiling, to size the partial sums:
+# (rows, columns) of output pixels per conv block (bfloat16 kTileH x kTileW
+# on the tensor cores, float32 one kPix row segment on the CUDA cores).
+_CONV_TILE = {torch.bfloat16: (8, 16), torch.float32: (1, 64)}
 _LN_PIX = 256        # pixels per LayerNorm-backward block
 _DW_ROWS = 32        # pixel rows per weight-gradient chunk
+
+
+def partial_counts(b: int, h: int, w: int, dtype: torch.dtype) -> tuple:
+    """Rows of the backward's float32 partial sums at ``(b, h, w)`` output
+    pixels: ``(n_conv, n_ln, n_chunk)`` = conv blocks (one db1 partial
+    each), LayerNorm-backward blocks, weight-gradient row chunks."""
+    th, tw = _CONV_TILE[dtype]
+    return -(-h // th) * -(-w // tw) * b, -(-b * h * w // _LN_PIX), -(-b * h // _DW_ROWS)
 
 
 def supported(dim: int, gelu_tanh: bool) -> bool:
@@ -104,14 +115,27 @@ def refine_head_bwd_reference(y, pre, a2, dout, w1, w2, gamma):
     return dy, dw1, db1, dw2, db2, dgamma, dbeta
 
 
+def _conv_weight(w, dt, transposed: bool = False):
+    """A torch-layout ``(Cout, Cin, 3, 3)`` conv weight as the kernels read
+    it: taps first, then float32 ``(Cin, Cout)`` for the CUDA cores and
+    bfloat16 ``(Cout, Cin)``, the tensor cores' B operand with the reduced
+    channel contiguous.  ``transposed``: the weight of the transposed conv
+    run as a forward conv, taps flipped and in/out swapped
+    (``W'[u, v, ci', co'] = W[ci', co', 2-u, 2-v]``)."""
+    if transposed:
+        w = w.flip(2, 3).transpose(0, 1)
+    order = (2, 3, 0, 1) if dt == torch.bfloat16 else (2, 3, 1, 0)
+    return w.to(dt).permute(*order).contiguous()
+
+
 def _prep(y, w1, b1, w2, b2, gamma, beta):
-    """Kernel operands: HWIO weights and biases in the dtype, LN params f32."""
+    """Kernel operands: conv weights and biases in the dtype, LN params f32."""
     c, dt = CHANNELS, y.dtype
     if y.shape[-1] != 16 * c:
         raise ValueError(f"refine head kernel: unsupported shape {tuple(y.shape)}")
     _build.check_cuda(y, "y")
-    ops = (w1.to(dt).permute(2, 3, 1, 0).contiguous(), b1.to(dt).contiguous(),
-           w2.to(dt).permute(2, 3, 1, 0).contiguous(), b2.to(dt).contiguous(),
+    ops = (_conv_weight(w1, dt), b1.to(dt).contiguous(),
+           _conv_weight(w2, dt), b2.to(dt).contiguous(),
            gamma.float().contiguous(), beta.float().contiguous())
     for t, name, shape in zip(ops, ("w1", "b1", "w2", "b2", "gamma", "beta"),
                               ((3, 3, c, c), (c,), (3, 3, c, c), (c,), (c,), (c,))):
@@ -137,20 +161,19 @@ def _bwd_kernel(y, pre, a2, dout, w1, w2, gamma):
     h, w = 4 * ht, 4 * wt
     for t, name in ((pre, "pre"), (a2, "a2"), (dout, "dout")):
         _build.check_cuda(t, name, (b, h, w, c), dt)
-    # the transposed convs run as forward convs with the taps flipped and
-    # in/out swapped: W'[u, v, co, ci] = W[co, ci, 2-u, 2-v]
-    w1f = w1.to(dt).flip(2, 3).permute(2, 3, 0, 1).contiguous()
-    w2f = w2.to(dt).flip(2, 3).permute(2, 3, 0, 1).contiguous()
+    w1f = _conv_weight(w1, dt, transposed=True)
+    w2f = _conv_weight(w2, dt, transposed=True)
     g = gamma.float().contiguous()
     for t, name, shape in ((w1f, "w1", (3, 3, c, c)), (w2f, "w2", (3, 3, c, c)),
                            (g, "gamma", (c,))):
         _build.check_cuda(t, name, shape)
     f32 = dict(dtype=torch.float32, device=dev)
-    n_conv = -(-w // _CONV_TILE[dt]) * h * b
-    n_ln = -(-b * h * w // _LN_PIX)
-    n_chunk = -(-b * h // _DW_ROWS)
+    n_conv, n_ln, n_chunk = partial_counts(b, h, w, dt)
     da2 = torch.empty_like(pre)
     da1 = torch.empty_like(pre)
+    # bfloat16: the conv epilogues leave GELU(pre), then GELU(y), here for
+    # the weight gradients; float32 recomputes them while loading
+    act = torch.empty_like(pre) if dt == torch.bfloat16 else None
     part_ln = torch.empty((n_ln, 3, c), **f32)
     part_db1 = torch.empty((n_conv, c), **f32)
     part_dw1 = torch.empty((n_chunk, 9, c, c), **f32)
@@ -158,13 +181,14 @@ def _bwd_kernel(y, pre, a2, dout, w1, w2, gamma):
     dy = torch.empty_like(y)
     dw1 = torch.empty((3, 3, c, c), **f32)  # HWIO
     dw2 = torch.empty((3, 3, c, c), **f32)
-    db1, db2, dg, dbe = (torch.empty(c, **f32) for _ in range(4))
+    db1 = torch.empty(c, **f32)
+    dln = torch.empty((3, c), **f32)  # dgamma, dbeta, db2: one pass over part_ln
     _build.launch("refine_head_bwd", "ssa_refine_head_bwd",
-                  [y, pre, a2, dout, w1f, w2f, g, da2, da1, part_ln, part_db1,
-                   part_dw1, part_dw2, dy, dw1, db1, dw2, db2, dg, dbe],
+                  [y, pre, a2, dout, w1f, w2f, g, da2, da1, act, part_ln, part_db1,
+                   part_dw1, part_dw2, dy, dw1, db1, dw2, dln],
                   [b, ht, wt, _DW_ROWS], dt)
     oihw = lambda t: t.permute(3, 2, 0, 1)  # noqa: E731  HWIO -> OIHW
-    return dy, oihw(dw1), db1, oihw(dw2), db2, dg, dbe
+    return dy, oihw(dw1), db1, oihw(dw2), dln[2], dln[0], dln[1]
 
 
 class _RefineHead(torch.autograd.Function):
