@@ -12,7 +12,14 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    C = 96, expand at C/2 = 96/192/384, the GELU+depth-to-space head at
    C = 96), in float32 and in bfloat16, each error beside its stated
    tolerance, and times kernel, plain version and (for attention) one
-   ``scaled_dot_product_attention`` call; the refine head also at two
+   ``scaled_dot_product_attention`` call; attention also by the profiler's
+   device time per launch, back to back and with the L2 emptied before
+   every launch, with the memory rate it amounts to, a repeated launch's
+   bits at every shape, and a phase of corner cases (``ATTENTION_CORNERS``:
+   uneven grids, one image, one head, uneven runs of windows, fewer
+   windows than blocks, head widths 16, 64, 48 and 24, windows of 16, 25
+   and 64 tokens, shifts on one axis) in float32 and bfloat16, forward and
+   backward, bits and all; the refine head also at two
    shapes whose tiles are ragged on every side, ``y (3, 13, 21, 2048)`` and
    ``y (1, 5, 3, 2048)`` (inference forward, training forward, backward
    and a repeated backward's bits);
@@ -27,7 +34,8 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    forward and backward, patch merge and expand backwards, the
    GELU+depth-to-space backward) against their plain versions at the
    shapes of the 512^2 batch-8 train steps, in float32 and bfloat16 (a
-   repeated patch or refine-head backward must give the same bits), and
+   repeated attention, patch or refine-head backward must give the same
+   bits), and
    the plain backwards against ``torch.autograd`` of the plain forwards,
    and times kernel, plain version and yardstick; the refine head's
    forward and backward are also timed part by part (each CUDA kernel of
@@ -134,6 +142,26 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 5, flush=None) -> float:
+    """Device time of the port's own kernels in one call of ``fn()``, by the
+    profiler, mean over ``reps`` calls: what the card spends, whatever the
+    host takes to launch.  With ``flush`` (a buffer larger than the 50 MB
+    L2) the buffer is rewritten before every call, so each call finds the
+    cache cold."""
+    def loop():
+        for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
+            fn()
+
+    fn()
+    for _ in range(3):  # a profile now and then comes back without its device events
+        rows = [(ms, count) for ms, count, key in kernel_times(loop) if "ssa::" in key]
+        if rows and min(count for _, count in rows) >= reps:
+            return sum(ms for ms, _ in rows) / reps
+    raise AssertionError("the profiler saw no device time for the port's kernels")
+
+
 def bound_ms(n_bytes: float, flops: float, op_rate: float = BF16_FLOP_PER_S) -> tuple:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / op_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -172,6 +200,11 @@ class KernelReport:
                         bound_ms=0.0, bound_by="", library_ms=None)
         self._by = {"bytes": 0.0, "operations": 0.0}
         self.t_sums = [0.0, 0.0, 0.0]  # Swin-T path: ms, plain ms, bound ms
+
+    def extra(self, count, **sums) -> None:
+        """Further per-path sums of the row (device time, cold-L2 time)."""
+        for key, value in sums.items():
+            self.row[key] = self.row.get(key, 0.0) + count * value
 
     def swin_t(self) -> str:
         ms, plain, bound = self.t_sums
@@ -222,12 +255,78 @@ def stage_shapes(wa):
             yield (stage, *wa.effective_shift(g, g, (ws, ws), (shift, shift)))
 
 
+L2_FLUSH_BYTES = 256 << 20  # rewritten between launches to empty the 50 MB L2
+
+
+def attention_device_times(rep, label, run, n_bytes, flush, count) -> None:
+    """Device time of one launch back to back and with the L2 emptied before
+    it, and the memory rate the first amounts to."""
+    dev, cold = device_ms(run), device_ms(run, flush=flush)
+    print(f"  {rep.row['name']} {label}: device_ms {dev:.4f} "
+          f"({n_bytes / dev / 1e6:.0f} GB/s of {HBM_BYTES_PER_S / 1e9:.0f}), "
+          f"cold-L2 device_ms {cold:.4f} ({n_bytes / cold / 1e6:.0f} GB/s)")
+    rep.extra(count, device_ms=dev, cold_l2_device_ms=cold)
+
+
+# (B, Hp, Wp, C, heads, window, sh, sw): what each case is there for
+ATTENTION_CORNERS = [
+    ((1, 14, 35, 64, 2, (7, 7), 3, 0), "Hp != Wp, one image, shift on one axis"),
+    ((3, 21, 28, 32, 1, (7, 7), 0, 0), "one head, unshifted"),
+    ((5, 77, 84, 32, 1, (7, 7), 3, 3), "660 windows over more than 132 blocks: uneven runs"),
+    ((2, 7, 14, 128, 8, (7, 7), 0, 3), "head width 16, 4 windows"),
+    ((1, 7, 7, 2048, 32, (7, 7), 0, 0), "head width 64, one window: fewer windows than blocks"),
+    ((3, 21, 14, 192, 3, (7, 7), 2, 3), "head width 64, sh != sw"),
+    ((2, 16, 24, 128, 4, (8, 8), 4, 3), "8 x 8 window: 64 tokens, eight key tiles"),
+    ((3, 8, 12, 64, 2, (4, 4), 2, 2), "4 x 4 window: one band of rows"),
+    ((2, 10, 15, 96, 2, (5, 5), 2, 2), "head width 48: the wmma kernels"),
+    ((2, 14, 14, 48, 2, (7, 7), 3, 3), "head width 24: the CUDA-core kernels"),
+]
+
+
+def check_attention_corners(fwa, gen) -> None:
+    """Forward and backward against the plain versions, float32 and
+    bfloat16, at shapes on every boundary of the kernels' launch plan and
+    templates; ``ctx``, ``dqkv`` and ``dbias`` of two launches must have
+    equal bits."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (b, hp, wp, dim, heads, (wh, ww), sh, sw), why in ATTENTION_CORNERS:
+        n, n_win = wh * ww, (hp // wh) * (wp // ww)
+        kw = dict(wh=wh, ww=ww, heads=heads, sh=sh, sw=sw)
+        qkv32 = torch.randn((b, hp, wp, 3 * dim), generator=gen, device="cuda")
+        d32 = torch.randn((b, hp, wp, dim), generator=gen, device="cuda")
+        bias = torch.randn((heads, n, n), generator=gen, device="cuda")
+        for dt in ("f32", "bf16"):
+            qkv, d = (qkv32, d32) if dt == "f32" else (qkv32.bfloat16(), d32.bfloat16())
+            route = fwa.kernel_route(qkv.dtype, dim // heads, n, sh < wh and sw < ww)
+            plan = (fwa.launch_plan(b, n_win, heads, sms, fwa.FWD_BLOCKS_PER_SM)
+                    if route == fwa.ROUTE_MMA else 1, *fwa.bwd_plan(route, b, n_win, heads, n, sms))
+            label = (f"qkv{tuple(qkv.shape)} window {(wh, ww)} heads {heads} shift {(sh, sw)} "
+                     f"{dt} (route {route}, forward blocks per head {plan[0]}, backward plan "
+                     f"{plan[1]} with partials {plan[2]}; {why})")
+            ctx = fwa.window_attention(qkv, bias, **kw)
+            got = fwa.window_attention_bwd(qkv, d, bias, **kw)
+            rels = {"window_attention": rel_err(
+                ctx, fwa.window_attention_reference(qkv, bias, **kw))[1]}
+            _, rels["window_attention_bwd"] = multi_err(
+                label, got, fwa.window_attention_bwd_reference(qkv, d, bias, **kw),
+                ("dqkv", "dbias"))
+            again = (fwa.window_attention(qkv, bias, **kw),
+                     *fwa.window_attention_bwd(qkv, d, bias, **kw))
+            if not all(torch.equal(x, y) for x, y in zip((ctx, *got), again)):
+                raise AssertionError(f"attention {label}: a repeated call gave other bits")
+            for name, rel in rels.items():
+                print(f"  {name} {label}: rel {rel:.3e} (tol {TOL[name][dt]:g})")
+                if not rel <= TOL[name][dt]:
+                    raise AssertionError(f"{name} {label}: {rel:.3e} > {TOL[name][dt]:g}")
+
+
 def check_attention_bwd(fwa, wa, gen, stages=STAGES, rep=None, main_path=True) -> KernelReport:
     """``main_path`` False: another width's shapes, checked and timed with
     count 0 and no yardstick."""
     rep = rep or KernelReport("window_attention_bwd", "fused_window_attention.cu",
                               "fused_window_attention.py:597")
     ws, n = 7, 49
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for stage, hp, wp, sh, sw in stage_shapes(wa):
         dim, heads, _, blocks = stages[stage]
         kw = dict(wh=ws, ww=ws, heads=heads, sh=sh, sw=sw)
@@ -239,16 +338,25 @@ def check_attention_bwd(fwa, wa, gen, stages=STAGES, rep=None, main_path=True) -
         errs = {}
         for dt in ("f32", "bf16"):
             qkv, d = (qkv32, d32) if dt == "f32" else (qkv32.bfloat16(), d32.bfloat16())
-            errs[dt] = multi_err(f"{label} {dt}", fwa.window_attention_bwd(qkv, d, bias, **kw),
+            got = fwa.window_attention_bwd(qkv, d, bias, **kw)
+            errs[dt] = multi_err(f"{label} {dt}", got,
                                  fwa.window_attention_bwd_reference(qkv, d, bias, **kw),
                                  ("dqkv", "dbias"))
+            # the bias-gradient partials are summed in a fixed order
+            if not all(torch.equal(a, b) for a, b in zip(
+                    got, fwa.window_attention_bwd(qkv, d, bias, **kw))):
+                raise AssertionError(f"window_attention_bwd {label} {dt}: a repeated call "
+                                     "gave other bits")
         qkv, d = qkv32.bfloat16(), d32.bfloat16()
-        ms = cuda_ms(lambda: fwa.window_attention_bwd(qkv, d, bias, **kw), 10)
+        run = lambda: fwa.window_attention_bwd(qkv, d, bias, **kw)  # noqa: E731
+        ms = cuda_ms(run, 10)
         plain = cuda_ms(lambda: fwa.window_attention_bwd_reference(qkv, d, bias, **kw), 2)
         n_win = B * (hp // ws) * (wp // ws)
         hd = dim // heads
-        b_ms, by = bound_ms(nbytes(qkv, d, bias) + qkv.numel() * 2 + bias.numel() * 4,
-                            10.0 * n_win * heads * n * n * hd)
+        n_bytes = nbytes(qkv, d, bias) + qkv.numel() * 2 + bias.numel() * 4
+        b_ms, by = bound_ms(n_bytes, 10.0 * n_win * heads * n * n * hd)
+        attention_device_times(rep, label, run, n_bytes, flush,
+                               blocks // 2 if main_path else 0)
         if not main_path:
             rep.add(f"{label} (Swin-T)", 0, errs, ms, plain, b_ms, by, t_count=blocks // 2)
             continue
@@ -453,6 +561,7 @@ def check_attention(fwa, wa, gen, stages=STAGES, rep=None, main_path=True) -> Ke
     rep = rep or KernelReport("window_attention", "fused_window_attention.cu",
                               "fused_window_attention.py:561")
     ws, n = 7, 49
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for stage, hp, wp, sh, sw in stage_shapes(wa):
         dim, heads, blocks, _ = stages[stage]
         kw = dict(wh=ws, ww=ws, heads=heads, sh=sh, sw=sw)
@@ -461,15 +570,21 @@ def check_attention(fwa, wa, gen, stages=STAGES, rep=None, main_path=True) -> Ke
         bias = wa.gather_bias(table, ws, ws, heads).float().contiguous()
         errs = {}
         for dt, qkv in (("f32", qkv32), ("bf16", qkv32.to(torch.bfloat16))):
-            errs[dt] = rel_err(fwa.window_attention(qkv, bias, **kw),
-                               fwa.window_attention_reference(qkv, bias, **kw))
+            got = fwa.window_attention(qkv, bias, **kw)
+            errs[dt] = rel_err(got, fwa.window_attention_reference(qkv, bias, **kw))
+            # nothing in the kernel depends on the order blocks run in
+            if not torch.equal(got, fwa.window_attention(qkv, bias, **kw)):
+                raise AssertionError(f"window_attention {dt}: a repeated call gave other bits")
         qkv = qkv32.to(torch.bfloat16)
-        ms = cuda_ms(lambda: fwa.window_attention(qkv, bias, **kw), 20)
+        run = lambda: fwa.window_attention(qkv, bias, **kw)  # noqa: E731
+        ms = cuda_ms(run, 20)
         plain = cuda_ms(lambda: fwa.window_attention_reference(qkv, bias, **kw), 3)
         hd = dim // heads
-        b_ms, by = bound_ms(nbytes(qkv, bias) + qkv.numel() // 3 * 2,
-                            4.0 * B * (hp // ws) * (wp // ws) * heads * n * n * hd)
+        n_bytes = nbytes(qkv, bias) + qkv.numel() // 3 * 2
+        b_ms, by = bound_ms(n_bytes, 4.0 * B * (hp // ws) * (wp // ws) * heads * n * n * hd)
         label = f"qkv{tuple(qkv.shape)} shift{(sh, sw)}"
+        attention_device_times(rep, label, run, n_bytes, flush,
+                               blocks // 2 if main_path else 0)
         if not main_path:
             rep.add(f"{label} (Swin-T)", 0, errs, ms, plain, b_ms, by, t_count=blocks // 2)
             continue
@@ -890,6 +1005,7 @@ def main() -> int:
     attn = check_attention(fused_window_attention, window_attention, gen)
     check_attention(fused_window_attention, window_attention, gen, SWIN_T_STAGES, attn,
                     main_path=False)
+    check_attention_corners(fused_window_attention, gen)
     merge, expand = check_patch(fused_patch, gen)
     refine = check_refine_head(fused_refine_head, gen)
     torch.cuda.empty_cache()

@@ -10,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <cstdint>
+
 namespace ssa {
 
 enum DType { kF32 = 0, kBF16 = 1 };
@@ -55,6 +57,92 @@ __device__ __forceinline__ float gelu_tanh_grad(float x) {
 }
 
 constexpr float kLnEps = 1e-5f;
+
+// ---------------------------------------------------------------------------
+// PTX helpers of the tensor-core kernels (the refine head's conv core and
+// the window-attention kernels): asynchronous 16-byte copies into shared
+// memory, 8x8 matrix fragment loads and stores, bf16 pair packing.
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without passing registers; `ok` false writes
+// zeros (SAME padding, ragged edges) and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  const int n = ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Four 8x8 bf16 matrices, one 16-byte row address per lane (lane 8i + j
+// gives row j of matrix i); register i holds matrix i as an mma fragment.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// The same with each matrix transposed on the way in.
+__device__ __forceinline__ void ldsm4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The reverse of `ldsm4`: four 8x8 bf16 matrices from fragment registers to
+// the rows the lanes address.
+__device__ __forceinline__ void stsm4(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// 16 bytes global -> shared, unconditionally.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+// One 16-byte (8-byte) store to device memory: the compiler may split a
+// uint4 (float2) assignment into 4-byte stores.
+__device__ __forceinline__ void st_global16(void* dst, uint32_t a, uint32_t b, uint32_t c,
+                                            uint32_t d) {
+  asm volatile("st.global.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"l"(dst), "r"(a), "r"(b), "r"(c),
+               "r"(d)
+               : "memory");
+}
+__device__ __forceinline__ void st_global8(float* dst, float a, float b) {
+  asm volatile("st.global.v2.f32 [%0], {%1, %2};\n" ::"l"(dst), "f"(a), "f"(b) : "memory");
+}
+// Two 8x8 bf16 matrices (lanes 0-15 give the row addresses).
+__device__ __forceinline__ void ldsm2(uint32_t& r0, uint32_t& r1, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+// D (16 x 8, float32) += A (16 x 16 bf16, row fragments) . B (16 x 8 bf16,
+// column fragments): one warp-level tensor-core product.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // out[i] = sum_r part[r * stride + i] for i < L, summed in a fixed order
 // (the second pass of every cross-block reduction, so a result does not

@@ -239,28 +239,9 @@ __global__ void __launch_bounds__(256) refine_conv_kernel(const ConvArgs<T> a) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores: PTX helpers for Hopper's asynchronous copies
-// and warpgroup products.
+// bfloat16 on the tensor cores: PTX helpers for Hopper's warpgroup products
+// (the asynchronous copies and the matrix fragment loads are in common.cuh).
 // ---------------------------------------------------------------------------
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared without passing registers; `ok` false writes
-// zeros (SAME padding, ragged edges) and reads nothing.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  const int n = ok ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 // Makes this thread's completed shared-memory writes visible to wgmma's
 // reads (the asynchronous proxy).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -291,35 +272,6 @@ __device__ __forceinline__ void gelu_and_grad_fast(float x, float& g, float& dg)
   const float s = gelu_sigmoid(x);
   g = x * s;
   dg = s + g * (1.0f - s) * (1.5957691216057308f * (1.0f + 3.0f * 0.044715f * x * x));
-}
-
-// Four 8x8 bf16 matrices, one 16-byte row address per lane (lane 8i + j
-// gives row j of matrix i); register i holds matrix i as an mma fragment.
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-// The same with each matrix transposed on the way in.
-__device__ __forceinline__ void ldsm4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// The reverse of `ldsm4`: four 8x8 bf16 matrices from fragment registers to
-// the rows the lanes address.
-__device__ __forceinline__ void stsm4(uint32_t addr, const uint32_t (&r)[4]) {
-  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
-               : "memory");
-}
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&t);
-}
-__device__ __forceinline__ float2 unpack2(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
 // wgmma shared-memory matrix descriptor, 128-byte swizzle: 8 rows of 128

@@ -48,8 +48,8 @@ LAUNCHES = {
 # C entry points: (name, number of pointer args, number of int args); every
 # function ends with (int dtype, void* stream) and returns cudaError_t.
 _SIGNATURES = {
-    "ssa_window_attention_fwd": (3, 9),
-    "ssa_window_attention_bwd": (6, 10),
+    "ssa_window_attention_fwd": (3, 11),
+    "ssa_window_attention_bwd": (6, 11),
     "ssa_patch_merge_fwd": (5, 4),
     "ssa_patch_merge_bwd": (13, 5),
     "ssa_patch_expand_fwd": (5, 4),

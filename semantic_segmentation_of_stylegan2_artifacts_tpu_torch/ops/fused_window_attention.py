@@ -9,7 +9,11 @@ same layout; the backward recomputes the probabilities from the saved
 qkv and writes ``dqkv`` ``(B,Hp,Wp,3C)`` and the float32 bias gradient
 ``(heads,N,N)`` summed over every window and image.  On the card the
 kernels cover every grid, so the TPU's width chunking
-(``_layout``/``pad_chunk``) and stage caps are gone.
+(``_layout``/``pad_chunk``) and stage caps are gone.  Which of the three
+kernel families a call takes (:func:`kernel_route`) and, for the
+``mma.sync`` kernels of the main path, how many blocks walk each head's
+windows (:func:`launch_plan`, from the card's SM count) are decided here,
+from the static shape, before the launch.
 
 :func:`window_attention_reference` and
 :func:`window_attention_bwd_reference` are the kernels' plain PyTorch
@@ -26,6 +30,7 @@ CPU tensors only, and a CUDA tensor launches the kernels or raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -40,8 +45,23 @@ from .window_attention import (
     unroll_and_crop,
 )
 
-# Windows per backward block: enough that the per-block bias-gradient
-# partials stay small, few enough that the grid fills the card.
+# Which kernel a call takes (``csrc/fused_window_attention.cu``): the CUDA-core
+# kernels (float32, and bfloat16 head widths that are not a multiple of 16),
+# the ``wmma`` kernels (bfloat16, other multiples of 16), or the ``mma.sync``
+# kernels of the main path (bfloat16, head width 16, 32 or 64).
+ROUTE_CORE, ROUTE_WMMA, ROUTE_MMA = 0, 1, 2
+_MMA_HEAD_DIMS = (16, 32, 64)
+_MAX_TOKENS = 64  # a window's tokens: four 16-row bands
+
+# Resident blocks per SM of the ``mma.sync`` kernels (their
+# ``__launch_bounds__`` and shared memory at head width 32): a launch gets at
+# most one wave of blocks, each walking a balanced run of windows.
+FWD_BLOCKS_PER_SM = 4
+BWD_BLOCKS_PER_SM = 3
+
+# Windows per backward block of the CUDA-core and ``wmma`` kernels: enough that
+# the per-block bias-gradient partials stay small, few enough that the grid
+# fills the card.
 _BWD_TARGET_BLOCKS = 1024
 _BWD_MAX_GROUP = 32
 
@@ -111,32 +131,98 @@ def window_attention_bwd_reference(qkv: torch.Tensor, dctx: torch.Tensor,
 
 def _check_shape(qkv: torch.Tensor, wh: int, ww: int, heads: int) -> None:
     _, hp, wp, c3 = qkv.shape
-    # the kernels keep a window's N x N scores in shared memory
-    if wh * ww > 64 or (c3 // 3) % heads or hp % wh or wp % ww:
+    # the kernels keep a window's N x N scores on chip, N <= 64
+    if wh * ww > _MAX_TOKENS or (c3 // 3) % heads or hp % wh or wp % ww:
         raise ValueError(f"window attention kernel: unsupported shape "
                          f"{tuple(qkv.shape)} window {(wh, ww)} heads {heads}")
+
+
+def kernel_route(dtype: torch.dtype, hd: int, n: int, shift_inside: bool = True) -> int:
+    """The kernel a (dtype, head width, tokens per window) takes, decided
+    from the static shape before any launch.  ``shift_inside``: the shift is
+    smaller than the window on both axes (the ``mma.sync`` kernels build the
+    shift mask from that)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"window attention kernel: float32 or bfloat16, got {dtype}")
+    if hd < 1 or not 1 <= n <= _MAX_TOKENS:
+        raise ValueError(f"window attention kernel: no kernel takes head width {hd} "
+                         f"with {n} tokens per window")
+    if dtype == torch.float32 or hd % 16:
+        return ROUTE_CORE
+    if hd in _MMA_HEAD_DIMS and shift_inside:
+        return ROUTE_MMA
+    return ROUTE_WMMA
+
+
+def launch_plan(batch: int, n_windows: int, heads: int, sm_count: int,
+                blocks_per_sm: int) -> int:
+    """Blocks per head of an ``mma.sync`` launch.  The grid is
+    ``chunks * heads`` blocks (block ``chunk * heads + head``); chunk ``c``
+    walks the windows :func:`chunk_range` gives it, of all images in turn.
+    At most one wave of resident blocks, at least one block per head, never
+    more chunks than windows."""
+    total = batch * n_windows
+    if total < 1 or heads < 1 or sm_count < 1 or blocks_per_sm < 1:
+        raise ValueError("launch_plan: every count must be at least 1")
+    return max(1, min(total, sm_count * blocks_per_sm // heads))
+
+
+def chunk_range(chunk: int, chunks: int, total: int) -> Tuple[int, int]:
+    """The run ``[begin, end)`` of windows chunk ``chunk`` walks: a balanced
+    split, as the kernels compute it."""
+    return chunk * total // chunks, (chunk + 1) * total // chunks
+
+
+def bwd_group(n_windows: int, heads: int) -> int:
+    """Windows each backward block of the CUDA-core and ``wmma`` kernels
+    walks through (its bias-gradient partial covers all of them)."""
+    g = -(-n_windows * heads // _BWD_TARGET_BLOCKS)
+    return max(1, min(_BWD_MAX_GROUP, g))
+
+
+def bwd_plan(route: int, batch: int, n_windows: int, heads: int, n: int,
+             sm_count: int) -> Tuple[int, Tuple[int, int, int, int]]:
+    """``(plan, scratch shape)`` of a backward launch: the plan argument of
+    the C entry point (blocks per head for the ``mma.sync`` kernels, windows
+    per block for the others) and the float32 scratch of per-block
+    bias-gradient partials, one ``(heads, N, columns)`` per block of a head.
+    The ``mma.sync`` kernels pad a partial's rows to their key tiles (56
+    columns up to 56 tokens, else 64) so that they write whole sectors."""
+    if route == ROUTE_MMA:
+        chunks = launch_plan(batch, n_windows, heads, sm_count, BWD_BLOCKS_PER_SM)
+        return chunks, (chunks, heads, n, 56 if n <= 56 else 64)
+    group = bwd_group(batch * n_windows, heads)
+    return group, (-(-batch * n_windows // group), heads, n, n)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _route(qkv: torch.Tensor, wh: int, ww: int, heads: int, sh: int, sw: int) -> int:
+    _check_shape(qkv, wh, ww, heads)
+    return kernel_route(qkv.dtype, qkv.shape[-1] // 3 // heads, wh * ww,
+                        0 <= sh < wh and 0 <= sw < ww)
 
 
 def _fwd(qkv, rel_bias, wh, ww, heads, sh, sw):
     if qkv.device.type == "cpu":
         return window_attention_reference(qkv, rel_bias, wh=wh, ww=ww,
                                           heads=heads, sh=sh, sw=sw)
-    _check_shape(qkv, wh, ww, heads)
+    route = _route(qkv, wh, ww, heads, sh, sw)
     b, hp, wp, c3 = qkv.shape
     _build.check_cuda(qkv, "qkv")
     _build.check_cuda(rel_bias, "rel_bias", (heads, wh * ww, wh * ww), torch.float32)
+    plan = 1
+    if route == ROUTE_MMA:
+        plan = launch_plan(b, (hp // wh) * (wp // ww), heads,
+                           _sm_count(qkv.device.index), FWD_BLOCKS_PER_SM)
     out = torch.empty((b, hp, wp, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     _build.launch("window_attention", "ssa_window_attention_fwd",
-                  [qkv, rel_bias, out], [b, hp, wp, c3 // 3, heads, wh, ww, sh, sw],
-                  qkv.dtype)
+                  [qkv, rel_bias, out],
+                  [b, hp, wp, c3 // 3, heads, wh, ww, sh, sw, route, plan], qkv.dtype)
     return out
-
-
-def bwd_group(n_windows: int, heads: int) -> int:
-    """Windows each backward block walks through (its bias-gradient
-    partial covers all of them)."""
-    g = -(-n_windows * heads // _BWD_TARGET_BLOCKS)
-    return max(1, min(_BWD_MAX_GROUP, g))
 
 
 def window_attention_bwd(qkv, dctx, rel_bias, *, wh, ww, heads, sh, sw):
@@ -146,21 +232,20 @@ def window_attention_bwd(qkv, dctx, rel_bias, *, wh, ww, heads, sh, sw):
     if qkv.device.type == "cpu":
         return window_attention_bwd_reference(qkv, dctx, rel_bias, wh=wh, ww=ww,
                                               heads=heads, sh=sh, sw=sw)
-    _check_shape(qkv, wh, ww, heads)
+    route = _route(qkv, wh, ww, heads, sh, sw)
     b, hp, wp, c3 = qkv.shape
     n = wh * ww
     _build.check_cuda(qkv, "qkv")
     _build.check_cuda(dctx, "dctx", (b, hp, wp, c3 // 3), qkv.dtype)
     _build.check_cuda(rel_bias, "rel_bias", (heads, n, n), torch.float32)
-    n_win = b * (hp // wh) * (wp // ww)
-    group = bwd_group(n_win, heads)
-    n_blk = -(-n_win // group)
+    plan, scratch = bwd_plan(route, b, (hp // wh) * (wp // ww), heads, n,
+                             _sm_count(qkv.device.index))
     dqkv = torch.empty_like(qkv)
-    part = torch.empty((n_blk, heads, n, n), dtype=torch.float32, device=qkv.device)
+    part = torch.empty(scratch, dtype=torch.float32, device=qkv.device)
     dbias = torch.empty((heads, n, n), dtype=torch.float32, device=qkv.device)
     _build.launch("window_attention_bwd", "ssa_window_attention_bwd",
                   [qkv, dctx, rel_bias, dqkv, part, dbias],
-                  [b, hp, wp, c3 // 3, heads, wh, ww, sh, sw, group], qkv.dtype)
+                  [b, hp, wp, c3 // 3, heads, wh, ww, sh, sw, route, plan], qkv.dtype)
     return dqkv, dbias
 
 

@@ -11,6 +11,14 @@
 
 Tolerance: atol = rtol = 3e-5, the bar of the JAX package's own VJP test
 (float32 sums in another order; the bias gradient sums every window).
+
+* The backward's launch plan (blocks per head, runs of windows, the
+  scratch of per-block bias-gradient partials) as a pure function, for the
+  ``mma.sync`` kernels and for the grouped CUDA-core and ``wmma`` kernels.
+* The gradients at the ragged shapes of the card's corner-case phase
+  against ``jax.vjp`` of the JAX kernel op (interpret mode) where its gate
+  takes the shape, else of the composed JAX op: float32, max abs error
+  <= 1e-4 of max(1, max |gradient|).
 """
 
 import jax
@@ -31,6 +39,7 @@ from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.ops import (
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.ops.window_attention import (
     effective_shift,
 )
+from test_torch_window_attention import PLAN_SHAPES, RAGGED, check_plan, jax_op, ragged_inputs
 
 TOL = dict(atol=3e-5, rtol=3e-5)
 KEYS = ("x", "qkv_kernel", "qkv_bias", "proj_kernel", "proj_bias", "bias_table")
@@ -116,3 +125,43 @@ def test_plain_backward_matches_autograd(shift):
     got = fwa.window_attention_bwd_reference(qkv, d, bias, **kw)
     for g, w_ in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w_.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("sms", [132, 108, 1])
+@pytest.mark.parametrize("batch,n_win,heads", PLAN_SHAPES)
+def test_backward_launch_plan_and_scratch(batch, n_win, heads, sms):
+    chunks = check_plan(batch, n_win, heads, sms, fwa.BWD_BLOCKS_PER_SM)
+    for n, cols in ((49, 56), (16, 56), (56, 56), (57, 64), (64, 64)):
+        plan, scratch = fwa.bwd_plan(fwa.ROUTE_MMA, batch, n_win, heads, n, sms)
+        # one (heads, N, columns) partial per block of a head: block
+        # chunk * heads + head writes row (chunk, head); rows padded to the
+        # kernel's key tiles
+        assert plan == chunks and scratch == (chunks, heads, n, cols)
+
+
+@pytest.mark.parametrize("route", [fwa.ROUTE_CORE, fwa.ROUTE_WMMA])
+@pytest.mark.parametrize("batch,n_win,heads", PLAN_SHAPES)
+def test_grouped_backward_plan_covers_every_window_once(batch, n_win, heads, route):
+    total = batch * n_win
+    group, (partials, *rest) = fwa.bwd_plan(route, batch, n_win, heads, 49, 132)
+    assert group == fwa.bwd_group(total, heads) and 1 <= group <= 32
+    assert rest == [heads, 49, 49]
+    # block i walks windows [i * group, (i + 1) * group): the last may be short
+    assert partials >= 1 and (partials - 1) * group < total <= partials * group
+
+
+@pytest.mark.parametrize("b,h,w,c,heads,window,shift", RAGGED)
+def test_ragged_vjp_matches_jax(b, h, w, c, heads, window, shift):
+    inp, cot = ragged_inputs(b, h, w, c, heads, window, seed=4)
+    kw = dict(window_size=window, shift_size=shift, num_heads=heads)
+    op = jax_op((b, h, w, c), window, heads)
+    _, vjp = jax.vjp(lambda *a: op(*a, **kw), *[jnp.asarray(inp[k]) for k in KEYS])
+    want = dict(zip(KEYS, vjp(jnp.asarray(cot))))
+    t = {k: torch.from_numpy(v).requires_grad_() for k, v in inp.items()}
+    args = [t["x"], t["qkv_kernel"].T, t["qkv_bias"], t["proj_kernel"].T, t["proj_bias"],
+            t["bias_table"]]
+    fwa.fused_shifted_window_attention(*args, **kw).backward(torch.from_numpy(cot))
+    for k in KEYS:
+        w_ = np.asarray(want[k])
+        err = np.abs(t[k].grad.numpy() - w_).max() / max(1.0, np.abs(w_).max())
+        assert err <= 1e-4, (k, err)

@@ -64,6 +64,18 @@ def _interpret(monkeypatch):
         monkeypatch.setattr(mod, "INTERPRET", True)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """oneDNN splits a conv weight gradient's float32 sum over its threads,
+    and not the same way in every process; the comparisons of those
+    gradients against JAX keep their tolerances by fixing the order of the
+    sum with one thread (as ``tests/test_torch_refine_train.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _batches(b, size, seed=0):
     rng = np.random.default_rng(seed)
     return [(rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8),
