@@ -40,7 +40,12 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    and times kernel, plain version and yardstick; the refine head's
    forward and backward are also timed part by part (each CUDA kernel of
    one call, by the profiler), beside the composed cuDNN head forward
-   alone and forward plus backward;
+   alone and forward plus backward; the patch backwards also by device
+   time (warm and cold L2), part by part with their CUDA launches a call
+   and achieved TFLOP/s, beside their products as bf16 ``torch.matmul``
+   calls (context), and at the corner cases ``PATCH_BWD_CORNERS`` (ragged
+   rows, the widths routed to the CUDA-core kernels) in float32 and
+   bfloat16, bits and all;
 6. drives the train step of the full Swin-B MS-UNet with every
    ``config.yaml`` knob on (bench.py's step: 512^2, batch 8, bf16 compute,
    f32 params, attention, head and patch kernels, drop-path 0.1) through
@@ -660,12 +665,35 @@ def check_patch(fp, gen) -> tuple:
     return merge, expand
 
 
+# what each CUDA kernel of a patch backward call does, by name
+PATCH_BWD_PARTS = (("mma_ab_round", "product"), ("mma_atb_partial", "split-K dW product"),
+                   ("expand_dz_mma", "product + LN epilogue"), ("merge_rows_mma", "row pass"),
+                   ("sum_jobs", "fixed-order sums"))
+
+
+def patch_bwd_parts(run) -> tuple:
+    """Device ms of each CUDA kernel of one call (profiler) and the number
+    of CUDA launches the call makes."""
+    parts, launches = [], 0
+    for ms, count, key in kernel_times(run):
+        if "ssa::" not in key:
+            continue
+        launches += count
+        what = next((w for k, w in PATCH_BWD_PARTS if k in key), key[:40])
+        parts.append(f"{what} {ms:.4f}")
+    return parts, launches
+
+
 def check_patch_bwd(fp, gen) -> tuple:
     """The merge and expand backward kernels (dx and the three parameter
     gradients) against their plain versions, and against themselves on a
-    repeated call (equal bits), at both widths."""
+    repeated call (equal bits), at both widths; the bf16 calls timed by
+    CUDA events, by the profiler's device time (warm and with the L2
+    emptied first) and part by part, beside the same products as bf16
+    ``torch.matmul`` calls (context: the port never calls them)."""
     merge = KernelReport("patch_merge_bwd", "fused_patch_bwd.cu", "fused_patch.py:227")
     expand = KernelReport("patch_expand_bwd", "fused_patch_bwd.cu", "fused_patch.py:378")
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for rep, cases in ((merge, MERGE_CASES), (expand, EXPAND_CASES)):
         is_merge = rep is merge
         for shape, count, t_count in cases:
@@ -702,8 +730,62 @@ def check_patch_bwd(fp, gen) -> tuple:
             n_bytes = 2 * (2 * x.numel() + d.numel() + k * n) + 4 * k * n + 4 * (2 + 2) * ln
             flops = (2 if is_merge else 3) * 2.0 * m * k * n
             b_ms, by = bound_ms(n_bytes, flops)
+            dev = device_ms(lambda: run(x, d))
+            cold = device_ms(lambda: run(x, d), flush=flush)
+            parts, n_launch = patch_bwd_parts(lambda: run(x, d))
+            # context: the same products as bf16 torch.matmul calls
+            wt = w.bfloat16()
+            a_mk = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+            b_mn = torch.randn((m, n), generator=gen, device="cuda").bfloat16()
+            prods = ([lambda: b_mn @ wt, lambda: a_mk.t() @ b_mn] if is_merge else
+                     [lambda: a_mk @ wt.t(), lambda: a_mk.t() @ b_mn, lambda: b_mn @ wt])
+            mm = cuda_ms(lambda: [p() for p in prods], 10)
+            del a_mk, b_mn
+            print(f"  {rep.row['name']} {label}: device_ms {dev:.4f} ({flops / dev / 1e9:.0f} "
+                  f"TFLOP/s of {BF16_FLOP_PER_S / 1e12:.0f}), cold-L2 device_ms {cold:.4f}, "
+                  f"{n_launch} CUDA launches a call; by part: {', '.join(parts)}; bf16 "
+                  f"torch.matmul of the same {len(prods)} products (context) {mm:.4f} ms")
+            rep.extra(count, device_ms=dev, cold_l2_device_ms=cold, matmul_context_ms=mm)
             rep.add(label, count, errs, ms, plain_ms, b_ms, by, t_count=t_count)
     return merge, expand
+
+
+# (shape, why) of the patch backward corner cases: rows ragged against the
+# tensor-core kernels' row tiles and split-K chunks, and widths the routing
+# sends to the CUDA-core kernels
+PATCH_BWD_CORNERS = [
+    (True, (1, 6, 10, 128), "15 merged rows"),
+    (True, (1, 2, 2, 512), "one merged row, 4C = 2048"),
+    (True, (1, 4, 4, 48), "C = 48: the CUDA-core kernels"),
+    (False, (1, 3, 5, 256), "15 rows"),
+    (False, (1, 1, 1, 1024), "one row, C/2 = 512"),
+    (False, (1, 2, 2, 128), "C/2 = 64: the CUDA-core kernels"),
+]
+
+
+def check_patch_bwd_corners(fp, gen) -> None:
+    """Both backwards against their plain versions in float32 and bfloat16
+    at ``PATCH_BWD_CORNERS``, with equal bits on a repeated call."""
+    for is_merge, shape, why in PATCH_BWD_CORNERS:
+        x32, w, sc, lb, dy32 = patch_inputs(gen, shape, is_merge)
+        if is_merge:
+            name, route = "patch_merge_bwd", fp.merge_route
+            run = lambda x, d: fp.patch_merge_bwd(x, d, sc, lb, w)  # noqa: E731
+            plain = lambda x, d: fp.patch_merge_bwd_reference(x, d, sc, lb, w)  # noqa: E731
+        else:
+            name, route = "patch_expand_bwd", fp.expand_route
+            run = lambda x, d: fp.patch_expand_bwd(x, d, w, sc)  # noqa: E731
+            plain = lambda x, d: fp.patch_expand_bwd_reference(x, d, w, sc)  # noqa: E731
+        for dt in ("f32", "bf16"):
+            x, d = (x32, dy32) if dt == "f32" else (x32.bfloat16(), dy32.bfloat16())
+            label = f"x{shape} {dt} (route {route(x.dtype, shape[-1])}; {why})"
+            got = run(x, d)
+            _, rel = multi_err(label, got, plain(x, d), ("0", "1", "2", "3"))
+            if not all(torch.equal(a, b) for a, b in zip(got, run(x, d))):
+                raise AssertionError(f"{name} {label}: a repeated call gave other bits")
+            print(f"  {name} {label}: rel {rel:.3e} (tol {TOL[name][dt]:g})")
+            if not rel <= TOL[name][dt]:
+                raise AssertionError(f"{name} {label}: {rel:.3e} > {TOL[name][dt]:g}")
 
 
 def check_gelu_d2s4(fh, gen) -> tuple:
@@ -1076,6 +1158,7 @@ def main() -> int:
     res, bwd = check_refine_train(fused_refine_head, gen)
     torch.cuda.empty_cache()
     merge_bwd, expand_bwd = check_patch_bwd(fused_patch, gen)
+    check_patch_bwd_corners(fused_patch, gen)
     torch.cuda.empty_cache()
     check_plain_backwards(fused_window_attention, fused_refine_head, fused_patch, fused_head,
                           window_attention, gen)

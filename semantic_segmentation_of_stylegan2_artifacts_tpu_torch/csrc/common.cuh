@@ -133,6 +133,12 @@ __device__ __forceinline__ void ldsm2(uint32_t& r0, uint32_t& r1, uint32_t addr)
                : "=r"(r0), "=r"(r1)
                : "r"(addr));
 }
+// The same with each matrix transposed on the way in.
+__device__ __forceinline__ void ldsm2_trans(uint32_t& r0, uint32_t& r1, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
 // D (16 x 8, float32) += A (16 x 16 bf16, row fragments) . B (16 x 8 bf16,
 // column fragments): one warp-level tensor-core product.
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,

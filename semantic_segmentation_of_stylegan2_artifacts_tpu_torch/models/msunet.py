@@ -213,11 +213,14 @@ class MSUNet(nn.Module):
 
     @classmethod
     def from_config(cls, config, img_size: Optional[int] = None,
-                    dtype: Optional[torch.dtype] = None, device=None) -> "MSUNet":
+                    num_classes: Optional[int] = None, dtype: Optional[torch.dtype] = None,
+                    device=None) -> "MSUNet":
         """Build from a config (reference schema, the drop rates of
         ``MODEL`` included) with weights seeded from ``SEED``, in eval
         mode, on ``device`` (the card unless the caller
-        passes another; raises with no GPU)."""
+        passes another; raises with no GPU).  The positional order is the
+        JAX package's ``MSUNet.from_config``; ``num_classes`` overrides
+        ``MODEL.NUM_CLASSES``."""
         dev = resolve_device(device)
         tpu = config.TPU
         for key in ("SPATIAL_AXIS", "MODEL_AXIS"):
@@ -234,7 +237,7 @@ class MSUNet(nn.Module):
             img_size=img_size or config.DATA.IMG_SIZE,
             patch_size=swin.PATCH_SIZE,
             in_chans=swin.IN_CHANS,
-            num_classes=config.MODEL.NUM_CLASSES,
+            num_classes=num_classes or config.MODEL.NUM_CLASSES,
             embed_dim=swin.EMBED_DIM,
             depths=tuple(swin.DEPTHS),
             num_heads=tuple(swin.NUM_HEADS),

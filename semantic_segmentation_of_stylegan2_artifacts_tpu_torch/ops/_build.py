@@ -52,8 +52,10 @@ _SIGNATURES = {
     "ssa_window_attention_bwd": (6, 11),
     "ssa_patch_merge_fwd": (5, 4),
     "ssa_patch_merge_bwd": (13, 5),
+    "ssa_patch_merge_bwd_mma": (13, 5),
     "ssa_patch_expand_fwd": (5, 4),
     "ssa_patch_expand_bwd": (12, 5),
+    "ssa_patch_expand_bwd_mma": (12, 5),
     "ssa_refine_head_fwd": (11, 3),
     "ssa_refine_head_bwd": (19, 4),
     "ssa_gelu_d2s4_fwd": (2, 4),
@@ -142,6 +144,12 @@ def build_log() -> str:
     """What ``ptxas -v`` said about each kernel (registers, spills)."""
     lib = library()
     return (Path(lib._name).parent / "build_log.txt").read_text()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (launch plans)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_cuda(t: torch.Tensor, name: str, shape=None, dtype=None) -> None:

@@ -7,7 +7,11 @@ Counterpart of the JAX package's ``ops/fused_patch.py``.  Merge is
 both bias-free, LayerNorm with float32 fast-variance stats clamped at 0
 (``models/layers.py:58-69`` of the JAX package).  The kernels live in
 ``csrc/fused_patch.cu`` (forwards) and ``csrc/fused_patch_bwd.cu``
-(backwards).
+(backwards).  A backward takes one of two kernel families, decided from
+(dtype, C) before the launch (:func:`merge_route`, :func:`expand_route`):
+the bfloat16 tensor-core kernels at every Swin-B and Swin-T width, sized by
+:func:`merge_bwd_plan` / :func:`expand_bwd_plan`, or the CUDA-core kernels
+(float32 and the other widths).
 
 The plain versions below follow the kernels' numerics and run for CPU
 tensors only.  Forwards: merge rounds the LN output to the input dtype
@@ -29,6 +33,8 @@ gradients stay float32.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import torch
 
 from . import _build
@@ -36,9 +42,25 @@ from .patch_ops import depth_to_space, merge_2x2, space_to_depth, unmerge_2x2
 
 LN_EPS = 1e-5
 # weight-gradient blocks to aim for (four per SM of an H100); mirrors the
-# split-K tiling of csrc/fused_patch_bwd.cu (32 x 128 or 32 x 32 tiles)
+# split-K tiling of the CUDA-core backwards in csrc/fused_patch_bwd.cu
+# (32 x 128 or 32 x 32 tiles)
 _DW_TARGET_BLOCKS = 528
 _DW_MIN_ROWS = 256
+
+# The backwards' two kernel families, chosen from (dtype, C) before a launch.
+ROUTE_CORE, ROUTE_MMA = 0, 1
+# Group widths C/2 of the tensor-core expand backward (its template
+# instances, SSA_EXPAND_MMA_NT in csrc/fused_patch_bwd.cu).
+_EXPAND_MMA_GROUPS = (96, 128, 192, 256, 384, 512)
+_MERGE_MMA_MAX_C = 512  # 4C channels of a merged row: one 8-channel chunk a thread
+# The tensor-core product core (csrc/fused_patch.cuh): 128 x 128 output
+# tiles, 64 reduction rows a stage, two blocks an SM; split-K chunks of at
+# least 512 rows.
+MMA_TILE = 128
+MMA_STEP = 64
+MMA_BLOCKS_PER_SM = 2
+_MMA_MIN_ROWS = 512
+MERGE_ROWS = 16  # merged rows per block of the tensor-core merge's row pass
 
 
 def _ln_stats(xf: torch.Tensor):
@@ -126,6 +148,81 @@ def dw_chunk_rows(m: int, k: int, n: int) -> int:
     return -(-rows // 16) * 16
 
 
+def merge_route(dtype: torch.dtype, c: int) -> int:
+    """The backward kernel a merge of ``c`` input channels takes: the
+    tensor-core kernels for bfloat16 at C a multiple of 32 up to 512, the
+    CUDA-core kernels for float32 and the other multiples of 16."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"patch merge backward kernel: float32 or bfloat16, got {dtype}")
+    if c < 16 or c % 16:
+        raise ValueError(f"patch merge backward kernel: no kernel takes C = {c}")
+    if dtype == torch.bfloat16 and c % 32 == 0 and c <= _MERGE_MMA_MAX_C:
+        return ROUTE_MMA
+    return ROUTE_CORE
+
+
+def expand_route(dtype: torch.dtype, c: int) -> int:
+    """The backward kernel an expand of ``c`` input channels takes: the
+    tensor-core kernels for bfloat16 at C/2 in :data:`_EXPAND_MMA_GROUPS`,
+    the CUDA-core kernels for float32 and the other C/2 multiples of 32 up
+    to 512."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"patch expand backward kernel: float32 or bfloat16, got {dtype}")
+    if not expand_supported((c,)):
+        raise ValueError(f"patch expand backward kernel: no kernel takes C = {c}")
+    if dtype == torch.bfloat16 and c // 2 in _EXPAND_MMA_GROUPS:
+        return ROUTE_MMA
+    return ROUTE_CORE
+
+
+def dz_rows(c: int) -> int:
+    """Rows per block of the tensor-core expand's dz kernel (``DzTile::BM``),
+    a block over a whole group of C/2 columns."""
+    return 128 if c // 2 <= 128 else 64 if c // 2 <= 256 else 32
+
+
+class BwdPlan(NamedTuple):
+    """Launch plan and float32 scratch of a tensor-core backward."""
+    rows: int                         # rows per split-K chunk of the weight gradient
+    chunks: int                       # ceil(M / rows)
+    dw_grid: Tuple[int, int, int]     # (k tiles, n tiles, chunks) of the dW product
+    part_dw: Tuple[int, int, int]     # (chunks, K, N)
+    part_ln: Tuple[int, int, int]     # (partial rows, 2, LN width): dscale | dbias
+
+
+def dw_split(m: int, k: int, n: int, sm_count: int) -> Tuple[int, int]:
+    """``(rows, chunks)`` of the tensor-core split-K weight gradient
+    ``(k, n)`` over ``m`` rows: about one wave of resident blocks, chunks of
+    at least :data:`_MMA_MIN_ROWS` rows, a multiple of :data:`MMA_STEP`."""
+    if min(m, k, n, sm_count) < 1:
+        raise ValueError("dw_split: every size must be at least 1")
+    tiles = _cdiv(k, MMA_TILE) * _cdiv(n, MMA_TILE)
+    chunks = max(1, min(MMA_BLOCKS_PER_SM * sm_count // tiles, _cdiv(m, _MMA_MIN_ROWS)))
+    rows = _cdiv(_cdiv(m, chunks), MMA_STEP) * MMA_STEP
+    return rows, _cdiv(m, rows)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _plan(m, k, n, sm_count, part_rows, ln) -> BwdPlan:
+    rows, chunks = dw_split(m, k, n, sm_count)
+    return BwdPlan(rows, chunks, (_cdiv(k, MMA_TILE), _cdiv(n, MMA_TILE), chunks),
+                   (chunks, k, n), (part_rows, 2, ln))
+
+
+def merge_bwd_plan(m: int, c: int, sm_count: int) -> BwdPlan:
+    """Plan of the tensor-core merge backward over ``m`` merged rows."""
+    return _plan(m, 4 * c, 2 * c, sm_count, _cdiv(m, MERGE_ROWS), 4 * c)
+
+
+def expand_bwd_plan(m: int, c: int, sm_count: int) -> BwdPlan:
+    """Plan of the tensor-core expand backward over ``m`` rows: dscale /
+    dbias partials for every (row block, group) of the dz kernel."""
+    return _plan(m, c, 2 * c, sm_count, 4 * _cdiv(m, dz_rows(c)), c // 2)
+
+
 def _merge_fwd(x, ln_scale, ln_bias, weight):
     if x.device.type == "cpu":
         return patch_merge_reference(x, ln_scale, ln_bias, weight)
@@ -147,14 +244,16 @@ def _merge_fwd(x, ln_scale, ln_bias, weight):
 
 
 def patch_merge_bwd(x, dy, ln_scale, ln_bias, weight):
-    """Backward wrapper: plain version on the CPU, the kernel (one count,
-    seven CUDA launches) on the card.  Returns ``(dx, dscale, dbias,
-    dweight)`` as :func:`patch_merge_bwd_reference`."""
+    """Backward wrapper: plain version on the CPU, the kernel (one count;
+    four CUDA launches on the tensor-core route, seven on the CUDA-core
+    route) on the card.  Returns ``(dx, dscale, dbias, dweight)`` as
+    :func:`patch_merge_bwd_reference`."""
     if x.device.type == "cpu":
         return patch_merge_bwd_reference(x, dy, ln_scale, ln_bias, weight)
     b, h, w, c = x.shape
     if not merge_supported(x.shape):
         raise ValueError(f"patch merge backward kernel: unsupported shape {tuple(x.shape)}")
+    route = merge_route(x.dtype, c)
     dt, dev = x.dtype, x.device
     m, k, n = b * (h // 2) * (w // 2), 4 * c, 2 * c
     wt = weight.to(dt).contiguous()  # (2C, 4C), torch layout
@@ -165,16 +264,23 @@ def patch_merge_bwd(x, dy, ln_scale, ln_bias, weight):
     _build.check_cuda(wt, "weight", (n, k), dt)
     _build.check_cuda(sc, "ln_scale", (k,))
     _build.check_cuda(lb, "ln_bias", (k,))
-    rows = dw_chunk_rows(m, k, n)
-    chunks = -(-m // rows)
     f32 = dict(dtype=torch.float32, device=dev)
-    dn = torch.empty((m, k), dtype=dt, device=dev)
-    stats = torch.empty((m, 2), **f32)
-    part_dw = torch.empty((chunks, k, n), **f32)
-    part_cs = torch.empty((chunks, 2, k), **f32)
     dx = torch.empty_like(x)
     dw = torch.empty((k, n), **f32)  # input-major
     dsc, dlb = torch.empty(k, **f32), torch.empty(k, **f32)
+    dn = torch.empty((m, k), dtype=dt, device=dev)
+    if route == ROUTE_MMA:
+        plan = merge_bwd_plan(m, c, _build.sm_count(dev.index))
+        _build.launch("patch_merge_bwd", "ssa_patch_merge_bwd_mma",
+                      [x, dy, sc, lb, wt, dn, torch.empty((m, k), dtype=dt, device=dev),
+                       torch.empty(plan.part_dw, **f32), torch.empty(plan.part_ln, **f32),
+                       dx, dw, dsc, dlb], [b, h, w, c, plan.rows], dt)
+        return dx, dsc, dlb, dw.t()
+    rows = dw_chunk_rows(m, k, n)
+    chunks = -(-m // rows)
+    stats = torch.empty((m, 2), **f32)
+    part_dw = torch.empty((chunks, k, n), **f32)
+    part_cs = torch.empty((chunks, 2, k), **f32)
     _build.launch("patch_merge_bwd", "ssa_patch_merge_bwd",
                   [x, dy, sc, lb, wt, dn, stats, part_dw, part_cs, dx, dw, dsc, dlb],
                   [b, h, w, c, rows], dt)
@@ -202,14 +308,16 @@ def _expand_fwd(x, weight, ln_scale, ln_bias):
 
 
 def patch_expand_bwd(x, dy, weight, ln_scale):
-    """Backward wrapper: plain version on the CPU, the kernel (one count,
-    six CUDA launches) on the card.  Returns ``(dx, dweight, dscale,
-    dbias)`` as :func:`patch_expand_bwd_reference`."""
+    """Backward wrapper: plain version on the CPU, the kernel (one count;
+    four CUDA launches on the tensor-core route, six on the CUDA-core
+    route) on the card.  Returns ``(dx, dweight, dscale, dbias)`` as
+    :func:`patch_expand_bwd_reference`."""
     if x.device.type == "cpu":
         return patch_expand_bwd_reference(x, dy, weight, ln_scale)
     b, h, w, c = x.shape
     if not expand_supported(x.shape):
         raise ValueError(f"patch expand backward kernel: unsupported shape {tuple(x.shape)}")
+    route = expand_route(x.dtype, c)
     dt, dev = x.dtype, x.device
     m = b * h * w
     wk = weight.to(dt).t().contiguous()  # (C, 2C), input-major, for z
@@ -219,15 +327,22 @@ def patch_expand_bwd(x, dy, weight, ln_scale):
     _build.check_cuda(dy, "dy", (b, 2 * h, 2 * w, c // 2), dt)
     _build.check_cuda(wk, "weight", (c, 2 * c), dt)
     _build.check_cuda(sc, "ln_scale", (c // 2,))
-    rows = dw_chunk_rows(m, c, 2 * c)
-    chunks = -(-m // rows)
     f32 = dict(dtype=torch.float32, device=dev)
     dz = torch.empty((m, 2 * c), dtype=dt, device=dev)
-    part_ln = torch.empty((4 * -(-m // 32), 2, c // 2), **f32)
-    part_dw = torch.empty((chunks, c, 2 * c), **f32)
     dx = torch.empty_like(x)
     dw = torch.empty((c, 2 * c), **f32)  # input-major
     dsc, dlb = torch.empty(c // 2, **f32), torch.empty(c // 2, **f32)
+    if route == ROUTE_MMA:
+        plan = expand_bwd_plan(m, c, _build.sm_count(dev.index))
+        _build.launch("patch_expand_bwd", "ssa_patch_expand_bwd_mma",
+                      [x, dy, wk, wt, sc, dz, torch.empty(plan.part_ln, **f32),
+                       torch.empty(plan.part_dw, **f32), dx, dw, dsc, dlb],
+                      [b, h, w, c, plan.rows], dt)
+        return dx, dw.t(), dsc, dlb
+    rows = dw_chunk_rows(m, c, 2 * c)
+    chunks = -(-m // rows)
+    part_ln = torch.empty((4 * -(-m // 32), 2, c // 2), **f32)
+    part_dw = torch.empty((chunks, c, 2 * c), **f32)
     _build.launch("patch_expand_bwd", "ssa_patch_expand_bwd",
                   [x, dy, wk, wt, sc, dz, part_ln, part_dw, dx, dw, dsc, dlb],
                   [b, h, w, c, rows], dt)

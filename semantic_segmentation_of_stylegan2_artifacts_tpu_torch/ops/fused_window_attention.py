@@ -30,7 +30,6 @@ CPU tensors only, and a CUDA tensor launches the kernels or raises.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -195,11 +194,6 @@ def bwd_plan(route: int, batch: int, n_windows: int, heads: int, n: int,
     return group, (-(-batch * n_windows // group), heads, n, n)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _route(qkv: torch.Tensor, wh: int, ww: int, heads: int, sh: int, sw: int) -> int:
     _check_shape(qkv, wh, ww, heads)
     return kernel_route(qkv.dtype, qkv.shape[-1] // 3 // heads, wh * ww,
@@ -217,7 +211,7 @@ def _fwd(qkv, rel_bias, wh, ww, heads, sh, sw):
     plan = 1
     if route == ROUTE_MMA:
         plan = launch_plan(b, (hp // wh) * (wp // ww), heads,
-                           _sm_count(qkv.device.index), FWD_BLOCKS_PER_SM)
+                           _build.sm_count(qkv.device.index), FWD_BLOCKS_PER_SM)
     out = torch.empty((b, hp, wp, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     _build.launch("window_attention", "ssa_window_attention_fwd",
                   [qkv, rel_bias, out],
@@ -239,7 +233,7 @@ def window_attention_bwd(qkv, dctx, rel_bias, *, wh, ww, heads, sh, sw):
     _build.check_cuda(dctx, "dctx", (b, hp, wp, c3 // 3), qkv.dtype)
     _build.check_cuda(rel_bias, "rel_bias", (heads, n, n), torch.float32)
     plan, scratch = bwd_plan(route, b, (hp // wh) * (wp // ww), heads, n,
-                             _sm_count(qkv.device.index))
+                             _build.sm_count(qkv.device.index))
     dqkv = torch.empty_like(qkv)
     part = torch.empty(scratch, dtype=torch.float32, device=qkv.device)
     dbias = torch.empty((heads, n, n), dtype=torch.float32, device=qkv.device)

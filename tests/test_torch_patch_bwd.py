@@ -5,7 +5,8 @@
   CPU) against ``jax.vjp`` of the JAX ``fused_patch_merge`` /
   ``fused_patch_expand`` with the Pallas kernels in interpret mode, at
   ``tests/test_torch_patch.py``'s shapes plus Swin-T widths (merge C = 96,
-  expand C = 192 and 384).
+  expand C = 192 and 384), shapes whose rows are ragged against the card
+  kernels' tiles, and widths the card routes to its CUDA-core kernels.
 * Each plain backward against ``torch.autograd`` of its plain forward.
 * The weight gradient of a bfloat16 call is rounded to bfloat16 on its way
   to the float32 parameter, as the JAX package's ``dw.astype(w.dtype)``
@@ -25,9 +26,13 @@ from semantic_segmentation_of_stylegan2_artifacts_tpu.ops import fused_patch as 
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.ops import fused_patch
 
 TOL = dict(atol=1e-4, rtol=1e-4)
-MERGE = [(2, 8, 8, 128), (1, 4, 6, 128), (2, 4, 4, 256), (1, 2, 2, 256), (2, 4, 4, 96)]
+# the last rows: shapes whose rows are ragged against the card's row tiles
+# and split-K chunks, and widths the routing sends to the CUDA-core kernels
+# (merge C = 48, expand C = 128)
+MERGE = [(2, 8, 8, 128), (1, 4, 6, 128), (2, 4, 4, 256), (1, 2, 2, 256), (2, 4, 4, 96),
+         (1, 6, 10, 128), (1, 2, 2, 512), (1, 4, 4, 48)]
 EXPAND = [(2, 4, 4, 256), (1, 3, 5, 256), (2, 2, 2, 512), (1, 1, 1, 512), (2, 4, 4, 192),
-          (1, 2, 2, 384)]
+          (1, 2, 2, 384), (1, 1, 1, 1024), (1, 2, 2, 128)]
 
 
 @pytest.fixture(autouse=True)
