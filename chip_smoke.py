@@ -12,8 +12,14 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    C = 96, expand at C/2 = 96/192/384, the GELU+depth-to-space head at
    C = 96), in float32 and in bfloat16, each error beside its stated
    tolerance, and times kernel, plain version and (for attention) one
-   ``scaled_dot_product_attention`` call; attention also by the profiler's
-   device time per launch, back to back and with the L2 emptied before
+   ``scaled_dot_product_attention`` call; the patch forwards also by
+   device time (warm and cold L2), part by part with their CUDA launches a
+   call, achieved TFLOP/s, beside their product as a bf16 ``torch.matmul``
+   call (context), with a repeated call's bits, 50 back-to-back bf16 calls
+   each equal in bits to the first, and at the corner cases
+   ``PATCH_FWD_CORNERS`` (ragged rows, the widths routed to the CUDA-core
+   kernels) in float32 and bfloat16, bits and all; attention also by the
+   profiler's device time per launch, back to back and with the L2 emptied before
    every launch, with the memory rate it amounts to, a repeated launch's
    bits at every shape, and a phase of corner cases (``ATTENTION_CORNERS``:
    uneven grids, one image, one head, uneven runs of windows, fewer
@@ -62,13 +68,16 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
 9. prints the kernels line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
-Any failed phase raises and exits non-zero.  It imports torch, numpy, the
-standard library and the port; without a GPU, or without the port beside
-it, it exits non-zero before printing any result.
+Any failed phase prints ``chip_smoke: phase <n> <name> failed: <error>``
+on stdout, with the shape where a shape check failed, and re-raises: the
+exit is non-zero.  It imports torch, numpy, the standard library and the
+port; without a GPU, or without the port beside it, it exits non-zero
+before printing any result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -160,11 +169,39 @@ def device_ms(fn, reps: int = 5, flush=None) -> float:
             fn()
 
     fn()
-    for _ in range(3):  # a profile now and then comes back without its device events
+    seen = []
+    for _ in range(3):
         rows = [(ms, count) for ms, count, key in kernel_times(loop) if "ssa::" in key]
         if rows and min(count for _, count in rows) >= reps:
             return sum(ms for ms, _ in rows) / reps
-    raise AssertionError("the profiler saw no device time for the port's kernels")
+        seen.append([count for _, count in rows])
+    # the profiler lost launches in every try (see kernel_times): time the
+    # same loop by CUDA events instead, queued behind a sleeping kernel so
+    # the host's launch time stays off the device's clock
+    ms = queued_event_ms(fn, reps, flush)
+    print(f"    device_ms: the profiler kept {seen} of {reps} launches a kernel in "
+          f"{len(seen)} profiles; by CUDA events behind a queued sleep: {ms:.4f} ms")
+    return ms
+
+
+def queued_event_ms(fn, reps: int, flush=None) -> float:
+    """Mean device time of ``fn()`` by a pair of CUDA events around each
+    call, all enqueued while a sleeping kernel holds the card, so each pair
+    reads the card's time and not the host's."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's clock: room to enqueue
+    pairs = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
 def bound_ms(n_bytes: float, flops: float, op_rate: float = BF16_FLOP_PER_S) -> tuple:
@@ -201,7 +238,8 @@ class KernelReport:
     def __init__(self, name, source, replaces):
         self.row = dict(name=name, route="cuda", source=f"{PKG}/csrc/{source}",
                         replaces=f"{JAX_PKG}/ops/{replaces}", launches=0,
-                        max_abs_err=0.0, max_abs_err_f32=0.0, ms=0.0, plain_ms=0.0,
+                        max_abs_err=0.0, max_abs_err_f32=0.0, max_rel_err=0.0,
+                        ms=0.0, plain_ms=0.0,
                         bound_ms=0.0, bound_by="", library_ms=None)
         self._by = {"bytes": 0.0, "operations": 0.0}
         self.t_sums = [0.0, 0.0, 0.0]  # Swin-T path: ms, plain ms, bound ms
@@ -229,6 +267,7 @@ class KernelReport:
         print(f"  {name} {shape_label} x{count}: kernel_ms {ms:.4f} plain_ms "
               f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({by}){lib}")
         r["max_abs_err"] = max(r["max_abs_err"], errs["bf16"][0])
+        r["max_rel_err"] = max(r["max_rel_err"], errs["bf16"][1])
         r["max_abs_err_f32"] = max(r["max_abs_err_f32"], errs["f32"][0])
         r["ms"] += count * ms
         r["plain_ms"] += count * plain_ms
@@ -635,43 +674,140 @@ def _swin_t(shape, count):
     return f"x{shape}" + ("" if count else " (Swin-T)")
 
 
+@contextlib.contextmanager
+def at(label):
+    """Re-raise any error inside with ``label`` (the shape) in front."""
+    try:
+        yield
+    except Exception as e:
+        raise RuntimeError(f"{label}: {type(e).__name__}: {e}") from e
+
+
+STRESS_CALLS = 50
+
+
 def check_patch(fp, gen) -> tuple:
+    """The merge and expand forwards against their plain versions at the
+    predict paths' shapes, f32 (the CUDA-core kernels) and bf16 (the
+    tensor-core kernels at every Swin-B and Swin-T width): a repeated call's
+    bits in both, ``STRESS_CALLS`` back-to-back bf16 calls each equal in bits
+    to the first, and the bf16 calls timed by CUDA events, by the profiler's
+    device time (warm and with the L2 emptied first) and part by part,
+    beside the product as a bf16 ``torch.matmul`` call (context: the port
+    never calls it)."""
     merge = KernelReport("patch_merge", "fused_patch.cu", "fused_patch.py:206")
     expand = KernelReport("patch_expand", "fused_patch.cu", "fused_patch.py:357")
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for rep, cases in ((merge, MERGE_CASES), (expand, EXPAND_CASES)):
         is_merge = rep is merge
+        name = rep.row["name"]
         for shape, count, t_count in cases:
             c = shape[-1]
+            label = _swin_t(shape, count)
             x32, w, sc, lb, _ = patch_inputs(gen, shape, is_merge)
             if is_merge:
                 run = lambda x: fp.fused_patch_merge(x, sc, lb, w)  # noqa: E731
                 plain = lambda x: fp.patch_merge_reference(x, sc, lb, w)  # noqa: E731
+                route = fp.merge_route
             else:
                 run = lambda x: fp.fused_patch_expand(x, w, sc, lb)  # noqa: E731
                 plain = lambda x: fp.patch_expand_reference(x, w, sc, lb)  # noqa: E731
-            errs = {dt: rel_err(run(x), plain(x))
-                    for dt, x in (("f32", x32), ("bf16", x32.to(torch.bfloat16)))}
-            x = x32.to(torch.bfloat16)
-            ms = cuda_ms(lambda: run(x), 20)
-            plain_ms = cuda_ms(lambda: plain(x), 3)
-            k, n = (4 * c, 2 * c) if is_merge else (c, 2 * c)
-            m = x.numel() // k  # GEMM rows
-            out_numel = m * n if is_merge else 2 * x.numel()
-            ln = 4 * c if is_merge else c // 2
-            b_ms, by = bound_ms(2 * (x.numel() + out_numel + k * n) + 8 * ln,
-                                2.0 * m * k * n)
-            rep.add(_swin_t(shape, count), count, errs, ms, plain_ms, b_ms, by,
-                    t_count=t_count)
+                route = fp.expand_route
+            errs = {}
+            with at(f"{name} {label}"):
+                for dt, x in (("f32", x32), ("bf16", x32.to(torch.bfloat16))):
+                    got = run(x)
+                    errs[dt] = rel_err(got, plain(x))
+                    if not torch.equal(got, run(x)):
+                        raise AssertionError(f"{name} {label} {dt}: a repeated call gave "
+                                             "other bits")
+                x = x32.to(torch.bfloat16)
+                outs = [run(x) for _ in range(STRESS_CALLS)]
+                bad = [i for i, o in enumerate(outs) if not torch.equal(o, outs[0])]
+                if bad:
+                    raise AssertionError(f"{name} {label} bf16: calls {bad} of "
+                                         f"{STRESS_CALLS} back to back differ in bits "
+                                         "from the first")
+                del outs
+                ms = cuda_ms(lambda: run(x), 20)
+                plain_ms = cuda_ms(lambda: plain(x), 3)
+                k, n = (4 * c, 2 * c) if is_merge else (c, 2 * c)
+                m = x.numel() // k  # GEMM rows
+                out_numel = m * n if is_merge else 2 * x.numel()
+                ln = 4 * c if is_merge else c // 2
+                flops = 2.0 * m * k * n
+                b_ms, by = bound_ms(2 * (x.numel() + out_numel + k * n) + 8 * ln, flops)
+                dev = device_ms(lambda: run(x))
+                cold = device_ms(lambda: run(x), flush=flush)
+                parts, n_launch = patch_parts(lambda: run(x))
+                # context: the same product as one bf16 torch.matmul call
+                a_mk = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+                wk = w.bfloat16().t()
+                mm = cuda_ms(lambda: a_mk @ wk, 20)
+                del a_mk
+            print(f"  {name} {label}: route {route(x.dtype, c)}, device_ms {dev:.4f} "
+                  f"({flops / dev / 1e9:.0f} TFLOP/s of {BF16_FLOP_PER_S / 1e12:.0f}), "
+                  f"cold-L2 device_ms {cold:.4f}, {n_launch} CUDA launches a call; by part: "
+                  f"{', '.join(parts)}; bf16 torch.matmul of the same product (context) "
+                  f"{mm:.4f} ms; {STRESS_CALLS} back-to-back calls equal in bits")
+            rep.extra(count, device_ms=dev, cold_l2_device_ms=cold, matmul_context_ms=mm)
+            rep.add(label, count, errs, ms, plain_ms, b_ms, by, t_count=t_count)
     return merge, expand
 
 
-# what each CUDA kernel of a patch backward call does, by name
-PATCH_BWD_PARTS = (("mma_ab_round", "product"), ("mma_atb_partial", "split-K dW product"),
-                   ("expand_dz_mma", "product + LN epilogue"), ("merge_rows_mma", "row pass"),
-                   ("sum_jobs", "fixed-order sums"))
+# (is merge, shape, why) of the patch forward corner cases: rows ragged
+# against the tensor-core kernels' row and product tiles, and widths the
+# routing sends to the CUDA-core kernels
+PATCH_FWD_CORNERS = [
+    (True, (1, 6, 10, 128), "15 merged rows"),
+    (True, (1, 2, 2, 512), "one merged row, 4C = 2048"),
+    (True, (1, 4, 4, 48), "C = 48: the CUDA-core kernel"),
+    (False, (1, 3, 5, 256), "15 rows"),
+    (False, (1, 1, 1, 1024), "one row, C/2 = 512"),
+    (False, (1, 2, 2, 128), "C/2 = 64: the CUDA-core kernel"),
+]
 
 
-def patch_bwd_parts(run) -> tuple:
+def check_patch_fwd_corners(fp, gen) -> None:
+    """Both forwards against their plain versions in float32 and bfloat16
+    at ``PATCH_FWD_CORNERS``, with equal bits on a repeated call."""
+    worst = {"patch_merge": 0.0, "patch_expand": 0.0}
+    for is_merge, shape, why in PATCH_FWD_CORNERS:
+        x32, w, sc, lb, _ = patch_inputs(gen, shape, is_merge)
+        if is_merge:
+            name, route = "patch_merge", fp.merge_route
+            run = lambda x: fp.fused_patch_merge(x, sc, lb, w)  # noqa: E731
+            plain = lambda x: fp.patch_merge_reference(x, sc, lb, w)  # noqa: E731
+        else:
+            name, route = "patch_expand", fp.expand_route
+            run = lambda x: fp.fused_patch_expand(x, w, sc, lb)  # noqa: E731
+            plain = lambda x: fp.patch_expand_reference(x, w, sc, lb)  # noqa: E731
+        for dt in ("f32", "bf16"):
+            x = x32 if dt == "f32" else x32.bfloat16()
+            label = f"x{shape} {dt} (route {route(x.dtype, shape[-1])}; {why})"
+            with at(f"{name} {label}"):
+                got = run(x)
+                _, rel = rel_err(got, plain(x))
+                if not torch.equal(got, run(x)):
+                    raise AssertionError(f"{name} {label}: a repeated call gave other bits")
+            print(f"  {name} {label}: rel {rel:.3e} (tol {TOL[name][dt]:g}), repeat equal "
+                  "in bits")
+            if not rel <= TOL[name][dt]:
+                raise AssertionError(f"{name} {label}: {rel:.3e} > {TOL[name][dt]:g}")
+            if dt == "bf16":
+                worst[name] = max(worst[name], rel)
+    print("  patch forward corners, largest bf16 rel error: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst.items()))
+
+
+# what each CUDA kernel of a patch call does, by name
+PATCH_PARTS = (("mma_ab_round", "product"), ("mma_atb_partial", "split-K dW product"),
+               ("expand_dz_mma", "product + LN epilogue"), ("merge_rows_mma", "row pass"),
+               ("merge_ln_rows", "row pass (n)"), ("expand_ln_rows", "row pass (LN, scatter)"),
+               ("sum_jobs", "fixed-order sums"), ("_fwd_kernel", "CUDA-core kernel"))
+
+
+def patch_parts(run) -> tuple:
     """Device ms of each CUDA kernel of one call (profiler) and the number
     of CUDA launches the call makes."""
     parts, launches = [], 0
@@ -679,7 +815,7 @@ def patch_bwd_parts(run) -> tuple:
         if "ssa::" not in key:
             continue
         launches += count
-        what = next((w for k, w in PATCH_BWD_PARTS if k in key), key[:40])
+        what = next((w for k, w in PATCH_PARTS if k in key), key[:40])
         parts.append(f"{what} {ms:.4f}")
     return parts, launches
 
@@ -732,7 +868,7 @@ def check_patch_bwd(fp, gen) -> tuple:
             b_ms, by = bound_ms(n_bytes, flops)
             dev = device_ms(lambda: run(x, d))
             cold = device_ms(lambda: run(x, d), flush=flush)
-            parts, n_launch = patch_bwd_parts(lambda: run(x, d))
+            parts, n_launch = patch_parts(lambda: run(x, d))
             # context: the same products as bf16 torch.matmul calls
             wt = w.bfloat16()
             a_mk = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
@@ -845,6 +981,9 @@ def check_refine_head(frh, gen) -> KernelReport:
     return rep
 
 
+PROFILE_PAD_S = 0.05  # host seconds before and after the work in a profile
+
+
 def kernel_times(fn) -> list:
     """(device ms, launches, name) of every CUDA kernel of one call of
     ``fn()``, by torch.profiler (CUPTI), in launch order of first use."""
@@ -853,12 +992,16 @@ def kernel_times(fn) -> list:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # a profile loses its first kernel (the tracer is still starting):
-        # spend that on a throw-away launch
+        # the profiler keeps only the device events whose times, moved onto
+        # the host's clock, fall inside its window, and on the H100 that
+        # move has been seen 3-4 ms off, losing a call's first launches or
+        # all of them: keep the card's work well inside the window
+        time.sleep(PROFILE_PAD_S)
         torch.zeros(1, device="cuda")
         torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -1035,6 +1178,17 @@ def time_predict(step, images, label) -> float:
     return fwd_ms
 
 
+@contextlib.contextmanager
+def phase(n: int, name: str):
+    """Run one phase of the smoke; on any error say which on stdout and
+    re-raise, so the exit is non-zero and the failure has a name."""
+    try:
+        yield
+    except BaseException as e:
+        print(f"chip_smoke: phase {n} {name} failed: {type(e).__name__}: {e}", flush=True)
+        raise
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1069,157 +1223,162 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    print(f"card: {card}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
+    with phase(1, "card and build"):
+        card = card_line()
+        print(f"card: {card}")
+        print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+              f"device {torch.cuda.get_device_name(0)}")
+        t0 = time.perf_counter()
+        _build.library()
+        print(f"build: {time.perf_counter() - t0:.1f} s")
+        for line in _build.build_log().splitlines():
+            if "registers" in line or "spill" in line or line.startswith("=="):
+                print(f"  ptxas: {line.strip()}")
 
-    t0 = time.perf_counter()
-    _build.library()
-    print(f"build: {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print(f"  ptxas: {line.strip()}")
+    with phase(2, "forward kernels against their plain versions"):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        print("kernels vs plain (512^2 batch 8 shapes; ms are bf16, per launch):")
+        attn = check_attention(fused_window_attention, window_attention, gen)
+        check_attention(fused_window_attention, window_attention, gen, SWIN_T_STAGES, attn,
+                        main_path=False)
+        check_attention_corners(fused_window_attention, gen)
+        merge, expand = check_patch(fused_patch, gen)
+        check_patch_fwd_corners(fused_patch, gen)
+        torch.cuda.empty_cache()
+        refine = check_refine_head(fused_refine_head, gen)
+        torch.cuda.empty_cache()
+        check_refine_ragged(fused_refine_head, gen)
+        gelu_f, gelu_b = check_gelu_d2s4(fused_head, gen)
+        torch.cuda.empty_cache()
 
-    # -- 2. each forward kernel against its plain version at the predict shapes
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    print("kernels vs plain (512^2 batch 8 shapes; ms are bf16, per launch):")
-    attn = check_attention(fused_window_attention, window_attention, gen)
-    check_attention(fused_window_attention, window_attention, gen, SWIN_T_STAGES, attn,
-                    main_path=False)
-    check_attention_corners(fused_window_attention, gen)
-    merge, expand = check_patch(fused_patch, gen)
-    refine = check_refine_head(fused_refine_head, gen)
-    torch.cuda.empty_cache()
-    check_refine_ragged(fused_refine_head, gen)
-    gelu_f, gelu_b = check_gelu_d2s4(fused_head, gen)
-    torch.cuda.empty_cache()
+    with phase(3, "Swin-B predict path"):
+        cfg = deployment_config(default_config)
+        t0 = time.perf_counter()
+        model = MSUNet.from_config(cfg)
+        n_params = sum(p.numel() for p in model.parameters())
+        blocks = sum(len(st.blocks) for mod in (model.ms_unet.layers, model.ms_unet.layers_up,
+                                                 model.ms_unet.layers_cent1,
+                                                 model.ms_unet.layers_cent2)
+                     for st in mod if hasattr(st, "blocks"))
+        print(f"model: {n_params} params, {blocks} Swin blocks, dtype {model.dtype}, "
+              f"built in {time.perf_counter() - t0:.1f} s")
+        step = make_predict_step(model)
+        rng = np.random.default_rng(0)
+        images = rng.integers(0, 256, (B, IMG, IMG, 3), dtype=np.uint8)
+        launches, probs = run_predict(
+            step, images, _build, expect(_build, window_attention=52, patch_merge=3,
+                                         patch_expand=6, refine_head=1), "Swin-B")
+        for r in (attn, merge, expand, refine):
+            r.row["launches"] = launches[r.row["name"]]
+        fwd_ms = time_predict(step, images, "Swin-B")
+        profile_forward(step, images, fwd_ms)
 
-    # -- 3. the predict path at full Swin-B width
-    cfg = deployment_config(default_config)
-    t0 = time.perf_counter()
-    model = MSUNet.from_config(cfg)
-    n_params = sum(p.numel() for p in model.parameters())
-    blocks = sum(len(st.blocks) for mod in (model.ms_unet.layers, model.ms_unet.layers_up,
-                                             model.ms_unet.layers_cent1,
-                                             model.ms_unet.layers_cent2)
-                 for st in mod if hasattr(st, "blocks"))
-    print(f"model: {n_params} params, {blocks} Swin blocks, dtype {model.dtype}, "
-          f"built in {time.perf_counter() - t0:.1f} s")
-    step = make_predict_step(model)
-    rng = np.random.default_rng(0)
-    images = rng.integers(0, 256, (B, IMG, IMG, 3), dtype=np.uint8)
-    launches, probs = run_predict(
-        step, images, _build, expect(_build, window_attention=52, patch_merge=3,
-                                     patch_expand=6, refine_head=1), "Swin-B")
-    for r in (attn, merge, expand, refine):
-        r.row["launches"] = launches[r.row["name"]]
-    fwd_ms = time_predict(step, images, "Swin-B")
-    profile_forward(step, images, fwd_ms)
+        loader = [{"image": rng.integers(0, 256, (B, IMG, IMG, 3), dtype=np.uint8),
+                   "case_name": [f"case{i}_{j}" for j in range(B)]} for i in range(2)]
+        preds = artifact_prediction(step, loader)
+        assert len(preds) == 2 and all(p.shape == (IMG, IMG) and np.isfinite(p).all()
+                                       for _, p in preds)
+        big = rng.integers(0, 256, (2 * IMG, 2 * IMG, 3), dtype=np.uint8)
+        t0 = time.perf_counter()
+        tiled = tiled_predict(step, big, tile=IMG, overlap=0.5, batch_tiles=B)
+        print(f"artifact_prediction: {len(preds)} cases; tiled_predict 1024^2 (9 tiles): "
+              f"{tiled.shape} in {time.perf_counter() - t0:.2f} s")
+        assert tiled.shape == (2 * IMG, 2 * IMG) and np.isfinite(tiled).all()
+        del step, model, probs
+        torch.cuda.empty_cache()
 
-    loader = [{"image": rng.integers(0, 256, (B, IMG, IMG, 3), dtype=np.uint8),
-               "case_name": [f"case{i}_{j}" for j in range(B)]} for i in range(2)]
-    preds = artifact_prediction(step, loader)
-    assert len(preds) == 2 and all(p.shape == (IMG, IMG) and np.isfinite(p).all()
-                                   for _, p in preds)
-    big = rng.integers(0, 256, (2 * IMG, 2 * IMG, 3), dtype=np.uint8)
-    t0 = time.perf_counter()
-    tiled = tiled_predict(step, big, tile=IMG, overlap=0.5, batch_tiles=B)
-    print(f"artifact_prediction: {len(preds)} cases; tiled_predict 1024^2 (9 tiles): "
-          f"{tiled.shape} in {time.perf_counter() - t0:.2f} s")
-    assert tiled.shape == (2 * IMG, 2 * IMG) and np.isfinite(tiled).all()
-    del step, model, probs
-    torch.cuda.empty_cache()
+    with phase(4, "f32 logits, kernel path against the composed path"):
+        kern = MSUNet.from_config(cfg, dtype=torch.float32)
+        comp = MSUNet.from_config(deployment_config(default_config, **COMPOSED),
+                                  dtype=torch.float32)
+        comp.load_state_dict(kern.state_dict())
+        x = torch.from_numpy(images[:2]).cuda().float() / 255.0
+        with torch.inference_mode():
+            a, b = kern(x), comp(x)
+        diff = (a - b).abs().max().item()
+        print(f"end-to-end f32 512^2 b2 logits, kernel vs composed path: max_abs_diff "
+              f"{diff:.3e} (tol {E2E_TOL:g}); logit range [{b.min().item():.3f}, "
+              f"{b.max().item():.3f}]")
+        if not math.isfinite(diff) or diff > E2E_TOL:
+            raise AssertionError(f"end-to-end diff {diff} > {E2E_TOL}")
+        del kern, comp, a, b
+        torch.cuda.empty_cache()
 
-    # -- 4. end-to-end: kernel path vs composed path, float32
-    kern = MSUNet.from_config(cfg, dtype=torch.float32)
-    comp = MSUNet.from_config(deployment_config(default_config, **COMPOSED),
-                              dtype=torch.float32)
-    comp.load_state_dict(kern.state_dict())
-    x = torch.from_numpy(images[:2]).cuda().float() / 255.0
-    with torch.inference_mode():
-        a, b = kern(x), comp(x)
-    diff = (a - b).abs().max().item()
-    print(f"end-to-end f32 512^2 b2 logits, kernel vs composed path: max_abs_diff "
-          f"{diff:.3e} (tol {E2E_TOL:g}); logit range [{b.min().item():.3f}, "
-          f"{b.max().item():.3f}]")
-    if not math.isfinite(diff) or diff > E2E_TOL:
-        raise AssertionError(f"end-to-end diff {diff} > {E2E_TOL}")
+    with phase(5, "training kernels against their plain versions"):
+        print("training kernels vs plain (512^2 batch 8 train-step shapes; ms are bf16):")
+        attn_bwd = check_attention_bwd(fused_window_attention, window_attention, gen)
+        check_attention_bwd(fused_window_attention, window_attention, gen, SWIN_T_STAGES,
+                            attn_bwd, main_path=False)
+        torch.cuda.empty_cache()
+        res, bwd = check_refine_train(fused_refine_head, gen)
+        torch.cuda.empty_cache()
+        merge_bwd, expand_bwd = check_patch_bwd(fused_patch, gen)
+        check_patch_bwd_corners(fused_patch, gen)
+        torch.cuda.empty_cache()
+        check_plain_backwards(fused_window_attention, fused_refine_head, fused_patch,
+                              fused_head, window_attention, gen)
+        torch.cuda.empty_cache()
 
-    del kern, comp, a, b
-    torch.cuda.empty_cache()
-
-    # -- 5. the training kernels at the train steps' shapes
-    print("training kernels vs plain (512^2 batch 8 train-step shapes; ms are bf16):")
-    attn_bwd = check_attention_bwd(fused_window_attention, window_attention, gen)
-    check_attention_bwd(fused_window_attention, window_attention, gen, SWIN_T_STAGES,
-                        attn_bwd, main_path=False)
-    torch.cuda.empty_cache()
-    res, bwd = check_refine_train(fused_refine_head, gen)
-    torch.cuda.empty_cache()
-    merge_bwd, expand_bwd = check_patch_bwd(fused_patch, gen)
-    check_patch_bwd_corners(fused_patch, gen)
-    torch.cuda.empty_cache()
-    check_plain_backwards(fused_window_attention, fused_refine_head, fused_patch, fused_head,
-                          window_attention, gen)
-    torch.cuda.empty_cache()
-
-    # -- 6. the Swin-B train step, every config.yaml knob on; then FUSED_PATCH off
     train_args = (default_config, MSUNet, create_train_state, make_train_step)
-    # 48 backwards for 52 forwards: the last stage of each cent decoder (2 + 2
-    # blocks) feeds nothing the loss reads (the reference drops its output),
-    # so autograd runs no backward through it.  Every merge and expand has a
-    # backward: cent decoder 2's expand feeds skip 0, cent decoder 1's two
-    # feed skips 1 and 0, the main decoder's three the head.
-    launches = run_train_step(
-        train_args, _build, rng, {}, expect(
-            _build, window_attention=52, window_attention_bwd=48, patch_merge=3,
-            patch_merge_bwd=3, patch_expand=6, patch_expand_bwd=6, refine_head_res=1,
-            refine_head_bwd=1), "Swin-B")
-    for r in (attn_bwd, res, bwd, merge_bwd, expand_bwd):
-        r.row["launches"] = launches[r.row["name"]]
-    torch.cuda.empty_cache()
-    run_train_step(train_args, _build, rng, {"TPU.FUSED_PATCH": False}, expect(
-        _build, window_attention=52, window_attention_bwd=48, refine_head_res=1,
-        refine_head_bwd=1), "Swin-B FUSED_PATCH off")
-    torch.cuda.empty_cache()
+    with phase(6, "Swin-B train step, every knob on, then FUSED_PATCH off"):
+        # 48 backwards for 52 forwards: the last stage of each cent decoder (2 +
+        # 2 blocks) feeds nothing the loss reads (the reference drops its
+        # output), so autograd runs no backward through it.  Every merge and
+        # expand has a backward: cent decoder 2's expand feeds skip 0, cent
+        # decoder 1's two feed skips 1 and 0, the main decoder's three the head.
+        launches = run_train_step(
+            train_args, _build, rng, {}, expect(
+                _build, window_attention=52, window_attention_bwd=48, patch_merge=3,
+                patch_merge_bwd=3, patch_expand=6, patch_expand_bwd=6, refine_head_res=1,
+                refine_head_bwd=1), "Swin-B")
+        for r in (attn_bwd, res, bwd, merge_bwd, expand_bwd):
+            r.row["launches"] = launches[r.row["name"]]
+        torch.cuda.empty_cache()
+        run_train_step(train_args, _build, rng, {"TPU.FUSED_PATCH": False}, expect(
+            _build, window_attention=52, window_attention_bwd=48, refine_head_res=1,
+            refine_head_bwd=1), "Swin-B FUSED_PATCH off")
+        torch.cuda.empty_cache()
 
-    # -- 7. f32 train step, kernel vs composed path
-    check_train_e2e(train_args, rng, {}, "Swin-B")
-    torch.cuda.empty_cache()
+    with phase(7, "Swin-B f32 train step against the composed path"):
+        check_train_e2e(train_args, rng, {}, "Swin-B")
+        torch.cuda.empty_cache()
 
-    # -- 8. the Swin-T-width model: predict, train step, f32 train check
-    cfg = deployment_config(default_config, **SWIN_T)
-    model = MSUNet.from_config(cfg)
-    print(f"Swin-T model: {sum(p.numel() for p in model.parameters())} params, head "
-          f"GELU+depth-to-space kernel {model.ms_unet.up.fused_gelu_d2s}")
-    step = make_predict_step(model)
-    launches, _ = run_predict(
-        step, images, _build, expect(_build, window_attention=28, patch_merge=3,
-                                     patch_expand=6, gelu_d2s4=1), "Swin-T")
-    gelu_f.row["launches"] = launches["gelu_d2s4"]
-    fwd_ms = time_predict(step, images, "Swin-T")
-    profile_forward(step, images, fwd_ms, what="Swin-T forward")
-    del step, model
-    torch.cuda.empty_cache()
-    launches = run_train_step(
-        train_args, _build, rng, SWIN_T, expect(
-            _build, window_attention=28, window_attention_bwd=24, patch_merge=3,
-            patch_merge_bwd=3, patch_expand=6, patch_expand_bwd=6, gelu_d2s4=1,
-            gelu_d2s4_bwd=1), "Swin-T")
-    gelu_b.row["launches"] = launches["gelu_d2s4_bwd"]
-    torch.cuda.empty_cache()
-    check_train_e2e(train_args, rng, SWIN_T, "Swin-T")
+    with phase(8, "Swin-T predict, train step and f32 train check"):
+        cfg = deployment_config(default_config, **SWIN_T)
+        model = MSUNet.from_config(cfg)
+        print(f"Swin-T model: {sum(p.numel() for p in model.parameters())} params, head "
+              f"GELU+depth-to-space kernel {model.ms_unet.up.fused_gelu_d2s}")
+        step = make_predict_step(model)
+        launches, _ = run_predict(
+            step, images, _build, expect(_build, window_attention=28, patch_merge=3,
+                                         patch_expand=6, gelu_d2s4=1), "Swin-T")
+        gelu_f.row["launches"] = launches["gelu_d2s4"]
+        fwd_ms = time_predict(step, images, "Swin-T")
+        profile_forward(step, images, fwd_ms, what="Swin-T forward")
+        del step, model
+        torch.cuda.empty_cache()
+        launches = run_train_step(
+            train_args, _build, rng, SWIN_T, expect(
+                _build, window_attention=28, window_attention_bwd=24, patch_merge=3,
+                patch_merge_bwd=3, patch_expand=6, patch_expand_bwd=6, gelu_d2s4=1,
+                gelu_d2s4_bwd=1), "Swin-T")
+        gelu_b.row["launches"] = launches["gelu_d2s4_bwd"]
+        torch.cuda.empty_cache()
+        check_train_e2e(train_args, rng, SWIN_T, "Swin-T")
 
-    reports = [attn, attn_bwd, merge, merge_bwd, expand, expand_bwd, refine, res, bwd,
-               gelu_f, gelu_b]
-    print("Swin-T path, per forward or step, kernel / plain / bound ms (bf16): " + "; ".join(
-        r.swin_t() for r in reports if r.t_sums[0]))
-    print(json.dumps({"kernels": [r.row for r in reports]}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    with phase(9, "report"):
+        reports = [attn, attn_bwd, merge, merge_bwd, expand, expand_bwd, refine, res, bwd,
+                   gelu_f, gelu_b]
+        if len(reports) != len(_build.LAUNCHES):
+            raise AssertionError(f"{len(reports)} kernel rows for {len(_build.LAUNCHES)} "
+                                 "launch counters")
+        print("Swin-T path, per forward or step, kernel / plain / bound ms (bf16): " +
+              "; ".join(r.swin_t() for r in reports if r.t_sums[0]))
+        print(json.dumps({"kernels": [r.row for r in reports]}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -110,6 +110,17 @@ constexpr int kStageBytes = kABytes + kBK * kBN * 2;
 constexpr int kSmem = kStages * kStageBytes;  // 96 KB: two blocks an SM
 }  // namespace mma
 
+// out (M, N) = round(a (M, K) . b (K, N)) in bfloat16 with float32 sums, all
+// row-major, K a multiple of 64, N of 8: the product kernel of the bf16
+// patch backwards (dn, dx) and forwards (expand's z, merge's output),
+// defined once, in fused_patch_bwd.cu.
+cudaError_t mma_ab_round(const bf16* a, const bf16* b, bf16* out, int M, int K, int N,
+                         cudaStream_t st);
+
+// Merged rows a block of the tensor-core merges' row passes (backward: n,
+// dx and the column sums; forward: n); 8 and 32 were slower on the H100.
+constexpr int kMergeRows = 16;
+
 // Byte offset of 16-byte chunk `chunk` of tile row `row`, rows of
 // `row_chunks` chunks.
 __device__ __forceinline__ uint32_t swz(int row, int chunk, int row_chunks) {

@@ -745,8 +745,6 @@ expand_dz_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 // weight gradient's A operand) and dx = round(LN backward) with 16-byte
 // stores and summing dn*xhat and dn; the block's partial row of those
 // column sums adds the row groups in order.
-constexpr int kMergeRows = 16;  // 8 and 32 were slower on the H100
-
 static __global__ void __launch_bounds__(mma::kThreads)
 merge_rows_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dn,
                       const float* __restrict__ sc, const float* __restrict__ lb,
@@ -941,8 +939,8 @@ static cudaError_t sum_jobs(SumJobs jobs, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-static cudaError_t mma_ab_round(const bf16* a, const bf16* b, bf16* out, int M, int K, int N,
-                                cudaStream_t st) {
+cudaError_t mma_ab_round(const bf16* a, const bf16* b, bf16* out, int M, int K, int N,
+                         cudaStream_t st) {
   if (K % mma::kBK || N % 8) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(mma_ab_round_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, mma::kSmem);

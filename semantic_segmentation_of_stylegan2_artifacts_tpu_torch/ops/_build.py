@@ -51,9 +51,11 @@ _SIGNATURES = {
     "ssa_window_attention_fwd": (3, 11),
     "ssa_window_attention_bwd": (6, 11),
     "ssa_patch_merge_fwd": (5, 4),
+    "ssa_patch_merge_fwd_mma": (6, 4),
     "ssa_patch_merge_bwd": (13, 5),
     "ssa_patch_merge_bwd_mma": (13, 5),
     "ssa_patch_expand_fwd": (5, 4),
+    "ssa_patch_expand_fwd_mma": (6, 4),
     "ssa_patch_expand_bwd": (12, 5),
     "ssa_patch_expand_bwd_mma": (12, 5),
     "ssa_refine_head_fwd": (11, 3),

@@ -7,10 +7,12 @@ Counterpart of the JAX package's ``ops/fused_patch.py``.  Merge is
 both bias-free, LayerNorm with float32 fast-variance stats clamped at 0
 (``models/layers.py:58-69`` of the JAX package).  The kernels live in
 ``csrc/fused_patch.cu`` (forwards) and ``csrc/fused_patch_bwd.cu``
-(backwards).  A backward takes one of two kernel families, decided from
-(dtype, C) before the launch (:func:`merge_route`, :func:`expand_route`):
-the bfloat16 tensor-core kernels at every Swin-B and Swin-T width, sized by
-:func:`merge_bwd_plan` / :func:`expand_bwd_plan`, or the CUDA-core kernels
+(backwards).  Forward and backward each take one of two kernel families,
+decided from (dtype, C) before the launch (:func:`merge_route`,
+:func:`expand_route`): the bfloat16 tensor-core kernels at every Swin-B and
+Swin-T width (the forwards two CUDA launches a call, a row pass and the
+product, with a bfloat16 scratch of ``n`` or ``z``; the backwards sized by
+:func:`merge_bwd_plan` / :func:`expand_bwd_plan`), or the CUDA-core kernels
 (float32 and the other widths).
 
 The plain versions below follow the kernels' numerics and run for CPU
@@ -149,27 +151,27 @@ def dw_chunk_rows(m: int, k: int, n: int) -> int:
 
 
 def merge_route(dtype: torch.dtype, c: int) -> int:
-    """The backward kernel a merge of ``c`` input channels takes: the
-    tensor-core kernels for bfloat16 at C a multiple of 32 up to 512, the
-    CUDA-core kernels for float32 and the other multiples of 16."""
+    """The kernels a merge of ``c`` input channels takes, forward and
+    backward: the tensor-core kernels for bfloat16 at C a multiple of 32 up
+    to 512, the CUDA-core kernels for float32 and the other multiples of 16."""
     if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"patch merge backward kernel: float32 or bfloat16, got {dtype}")
+        raise ValueError(f"patch merge kernel: float32 or bfloat16, got {dtype}")
     if c < 16 or c % 16:
-        raise ValueError(f"patch merge backward kernel: no kernel takes C = {c}")
+        raise ValueError(f"patch merge kernel: no kernel takes C = {c}")
     if dtype == torch.bfloat16 and c % 32 == 0 and c <= _MERGE_MMA_MAX_C:
         return ROUTE_MMA
     return ROUTE_CORE
 
 
 def expand_route(dtype: torch.dtype, c: int) -> int:
-    """The backward kernel an expand of ``c`` input channels takes: the
-    tensor-core kernels for bfloat16 at C/2 in :data:`_EXPAND_MMA_GROUPS`,
-    the CUDA-core kernels for float32 and the other C/2 multiples of 32 up
-    to 512."""
+    """The kernels an expand of ``c`` input channels takes, forward and
+    backward: the tensor-core kernels for bfloat16 at C/2 in
+    :data:`_EXPAND_MMA_GROUPS`, the CUDA-core kernels for float32 and the
+    other C/2 multiples of 32 up to 512."""
     if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"patch expand backward kernel: float32 or bfloat16, got {dtype}")
+        raise ValueError(f"patch expand kernel: float32 or bfloat16, got {dtype}")
     if not expand_supported((c,)):
-        raise ValueError(f"patch expand backward kernel: no kernel takes C = {c}")
+        raise ValueError(f"patch expand kernel: no kernel takes C = {c}")
     if dtype == torch.bfloat16 and c // 2 in _EXPAND_MMA_GROUPS:
         return ROUTE_MMA
     return ROUTE_CORE
@@ -223,12 +225,24 @@ def expand_bwd_plan(m: int, c: int, sm_count: int) -> BwdPlan:
     return _plan(m, c, 2 * c, sm_count, 4 * _cdiv(m, dz_rows(c)), c // 2)
 
 
+def _check_rows_aligned(c: int, dtype: torch.dtype) -> None:
+    """The tensor-core row passes copy 16-byte chunks from and to rows of
+    ``c`` (gather, scatter) and ``c / 2`` values (expand's groups): both must
+    be whole chunks.  Every width the routes send there is."""
+    if (c // 2 * dtype.itemsize) % 16:
+        raise ValueError(f"patch kernel: rows of C = {c} are not 16-byte aligned")
+
+
 def _merge_fwd(x, ln_scale, ln_bias, weight):
+    """Forward wrapper: plain version on the CPU, the kernel (one count; two
+    CUDA launches on the tensor-core route, one on the CUDA-core route) on
+    the card."""
     if x.device.type == "cpu":
         return patch_merge_reference(x, ln_scale, ln_bias, weight)
     b, h, w, c = x.shape
     if not merge_supported(x.shape):
         raise ValueError(f"patch merge kernel: unsupported shape {tuple(x.shape)}")
+    route = merge_route(x.dtype, c)
     dt = x.dtype
     _build.check_cuda(x, "x")
     wk = weight.to(dt).t().contiguous()  # (4C, 2C), input-major
@@ -238,8 +252,14 @@ def _merge_fwd(x, ln_scale, ln_bias, weight):
     _build.check_cuda(sc, "ln_scale", (4 * c,))
     _build.check_cuda(lb, "ln_bias", (4 * c,))
     out = torch.empty((b, h // 2, w // 2, 2 * c), dtype=dt, device=x.device)
-    _build.launch("patch_merge", "ssa_patch_merge_fwd", [x, sc, lb, wk, out],
-                  [b, h, w, c], dt)
+    if route == ROUTE_MMA:
+        _check_rows_aligned(c, dt)
+        n = torch.empty((b * (h // 2) * (w // 2), 4 * c), dtype=dt, device=x.device)
+        _build.launch("patch_merge", "ssa_patch_merge_fwd_mma", [x, sc, lb, wk, n, out],
+                      [b, h, w, c], dt)
+    else:
+        _build.launch("patch_merge", "ssa_patch_merge_fwd", [x, sc, lb, wk, out],
+                      [b, h, w, c], dt)
     return out
 
 
@@ -288,11 +308,15 @@ def patch_merge_bwd(x, dy, ln_scale, ln_bias, weight):
 
 
 def _expand_fwd(x, weight, ln_scale, ln_bias):
+    """Forward wrapper: plain version on the CPU, the kernel (one count; two
+    CUDA launches on the tensor-core route, one on the CUDA-core route) on
+    the card."""
     if x.device.type == "cpu":
         return patch_expand_reference(x, weight, ln_scale, ln_bias)
     b, h, w, c = x.shape
     if not expand_supported(x.shape):
         raise ValueError(f"patch expand kernel: unsupported shape {tuple(x.shape)}")
+    route = expand_route(x.dtype, c)
     dt = x.dtype
     _build.check_cuda(x, "x")
     wk = weight.to(dt).t().contiguous()  # (C, 2C), input-major
@@ -302,8 +326,14 @@ def _expand_fwd(x, weight, ln_scale, ln_bias):
     _build.check_cuda(sc, "ln_scale", (c // 2,))
     _build.check_cuda(lb, "ln_bias", (c // 2,))
     out = torch.empty((b, 2 * h, 2 * w, c // 2), dtype=dt, device=x.device)
-    _build.launch("patch_expand", "ssa_patch_expand_fwd", [x, wk, sc, lb, out],
-                  [b, h, w, c], dt)
+    if route == ROUTE_MMA:
+        _check_rows_aligned(c, dt)
+        z = torch.empty((b * h * w, 2 * c), dtype=dt, device=x.device)
+        _build.launch("patch_expand", "ssa_patch_expand_fwd_mma", [x, wk, sc, lb, z, out],
+                      [b, h, w, c], dt)
+    else:
+        _build.launch("patch_expand", "ssa_patch_expand_fwd", [x, wk, sc, lb, out],
+                      [b, h, w, c], dt)
     return out
 
 

@@ -34,8 +34,14 @@ def _arrays(seed, x_shape, w_shape, ln_dim):
     return x, w, sc, lb
 
 
-MERGE = [(2, 8, 8, 128), (1, 4, 6, 128), (2, 4, 4, 256), (1, 2, 2, 256)]
-EXPAND = [(2, 4, 4, 256), (1, 3, 5, 256), (2, 2, 2, 512), (1, 1, 1, 512)]
+# the last rows: the card's forward corner cases -- rows ragged against the
+# tensor-core kernels' tiles (15 merged rows, one merged row at 4C = 2048, one
+# row at C/2 = 512; 15 rows is (1, 3, 5, 256) above) and widths routed to
+# the CUDA-core kernels (merge C = 48, expand C/2 = 64)
+MERGE = [(2, 8, 8, 128), (1, 4, 6, 128), (2, 4, 4, 256), (1, 2, 2, 256),
+         (1, 6, 10, 128), (1, 2, 2, 512), (1, 4, 4, 48)]
+EXPAND = [(2, 4, 4, 256), (1, 3, 5, 256), (2, 2, 2, 512), (1, 1, 1, 512),
+          (1, 1, 1, 1024), (1, 2, 2, 128)]
 
 
 @pytest.mark.parametrize("shape", MERGE)

@@ -1,10 +1,14 @@
-"""The patch backwards' routing and launch plan, as pure functions.
+"""The patch kernels' routing and launch plan, as pure functions.
 
 * ``merge_route`` / ``expand_route``: the kernel family a (dtype, C) takes,
-  decided before any launch -- the tensor-core kernels for bfloat16 at
-  every Swin-B and Swin-T width, the CUDA-core kernels for float32 and the
-  other widths that launched before, ``ValueError`` where no kernel takes
-  the shape.
+  forward and backward, decided before any launch -- the tensor-core
+  kernels for bfloat16 at every Swin-B and Swin-T width, the CUDA-core
+  kernels for float32 and the other widths that launched before,
+  ``ValueError`` where no kernel takes the shape.
+* The forward wrappers' launch, captured on ``meta`` tensors: the entry
+  point each (dtype, C) takes, its integer arguments, and the bfloat16
+  scratch of the tensor-core route (merge's ``n``, M x 4C; expand's ``z``,
+  M x 2C); every width routed there has rows of whole 16-byte chunks.
 * ``merge_bwd_plan`` / ``expand_bwd_plan``: the split-K chunks cover every
   row exactly once, the grid is never empty, and the scratch the wrapper
   hands the C entry point has the plan's shapes (the wrapper runs on
@@ -155,3 +159,88 @@ def test_expand_wrapper_scratch_matches_plan(monkeypatch, dtype, shape):
         assert (tuple(t[6].shape), tuple(t[7].shape)) == (plan.part_ln, plan.part_dw)
     else:
         assert fn == "ssa_patch_expand_bwd" and ints[4] == fp.dw_chunk_rows(m, c, 2 * c)
+
+
+# (B, H, W): a 512^2 batch-8 stage grid is covered by the plan tests; here
+# rows ragged against every tile (15 merged rows, one row)
+FWD_GRIDS = [(2, 4, 6), (1, 6, 10), (1, 2, 2)]
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("c", MERGE_WIDTHS)
+@pytest.mark.parametrize("grid", FWD_GRIDS)
+def test_merge_fwd_wrapper_launch(monkeypatch, dtype, c, grid):
+    calls = _capture(monkeypatch)
+    b, h, w = grid
+    meta = dict(device="meta")
+    x = torch.empty((b, h, w, c), dtype=dtype, **meta)
+    out = fp._merge_fwd(x, torch.empty(4 * c, **meta), torch.empty(4 * c, **meta),
+                        torch.empty((2 * c, 4 * c), **meta))
+    (counter, fn, t, ints), = calls
+    m = b * (h // 2) * (w // 2)
+    assert counter == "patch_merge" and ints == [b, h, w, c]
+    assert t[0] is x and t[-1] is out and out.shape == (b, h // 2, w // 2, 2 * c)
+    assert t[3].shape == (4 * c, 2 * c) and t[3].dtype == dtype  # input-major weight
+    assert all(v.shape == (4 * c,) and v.dtype == F32 for v in t[1:3])
+    if dtype == BF16:
+        assert fp.merge_route(dtype, c) == fp.ROUTE_MMA
+        assert fn == "ssa_patch_merge_fwd_mma" and len(t) == 6
+        assert t[4].shape == (m, 4 * c) and t[4].dtype == BF16  # n
+    else:
+        assert fn == "ssa_patch_merge_fwd" and len(t) == 5
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("c", EXPAND_WIDTHS)
+@pytest.mark.parametrize("grid", FWD_GRIDS)
+def test_expand_fwd_wrapper_launch(monkeypatch, dtype, c, grid):
+    calls = _capture(monkeypatch)
+    b, h, w = grid
+    meta = dict(device="meta")
+    x = torch.empty((b, h, w, c), dtype=dtype, **meta)
+    out = fp._expand_fwd(x, torch.empty((2 * c, c), **meta), torch.empty(c // 2, **meta),
+                         torch.empty(c // 2, **meta))
+    (counter, fn, t, ints), = calls
+    m = b * h * w
+    assert counter == "patch_expand" and ints == [b, h, w, c]
+    assert t[0] is x and t[-1] is out and out.shape == (b, 2 * h, 2 * w, c // 2)
+    assert t[1].shape == (c, 2 * c) and t[1].dtype == dtype  # input-major weight
+    assert all(v.shape == (c // 2,) and v.dtype == F32 for v in t[2:4])
+    if dtype == BF16:
+        assert fp.expand_route(dtype, c) == fp.ROUTE_MMA
+        assert fn == "ssa_patch_expand_fwd_mma" and len(t) == 6
+        assert t[4].shape == (m, 2 * c) and t[4].dtype == BF16  # z
+    else:
+        assert fn == "ssa_patch_expand_fwd" and len(t) == 5
+
+
+@pytest.mark.parametrize("is_merge,c", [(True, 48), (True, 16), (False, 128)])
+def test_fwd_wrapper_other_widths_take_the_cuda_core_kernel(monkeypatch, is_merge, c):
+    calls = _capture(monkeypatch)
+    meta = dict(device="meta")
+    x = torch.empty((1, 4, 4, c), dtype=BF16, **meta)
+    if is_merge:
+        fp._merge_fwd(x, torch.empty(4 * c, **meta), torch.empty(4 * c, **meta),
+                      torch.empty((2 * c, 4 * c), **meta))
+    else:
+        fp._expand_fwd(x, torch.empty((2 * c, c), **meta), torch.empty(c // 2, **meta),
+                       torch.empty(c // 2, **meta))
+    (_, fn, t, _), = calls
+    assert fn == ("ssa_patch_merge_fwd" if is_merge else "ssa_patch_expand_fwd")
+    assert len(t) == 5
+
+
+def test_tensor_core_rows_are_whole_chunks():
+    """The row passes' gather, scatter and groups copy 16-byte chunks: every
+    width routed to the tensor cores passes the wrapper's check, and a width
+    whose groups are not whole chunks raises."""
+    for c in range(16, 1025, 16):
+        if fp.merge_route(BF16, c) == fp.ROUTE_MMA:
+            fp._check_rows_aligned(c, BF16)
+            assert (c * 2) % 16 == 0
+    for c in range(64, 1025, 64):
+        if fp.expand_route(BF16, c) == fp.ROUTE_MMA:
+            fp._check_rows_aligned(c, BF16)
+            assert (c // 2 * 2) % 16 == 0
+    with pytest.raises(ValueError):
+        fp._check_rows_aligned(24, BF16)
