@@ -65,6 +65,21 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    runs the GELU+depth-to-space kernel: its predict forward and its train
    step, each with its launch counts, times and a profile, and a float32
    train step against the composed path;
+10. (run before 9) trains ``config.yaml`` as shipped (Swin-B, 1024^2,
+   batch 2, bf16, every knob on, attention dropout 0.05, drop-path 0.1;
+   only the paths, ``PRETRAIN_WEIGHTS: none`` and 2 epochs with 1 of warm-up
+   changed) through the port's train CLI on a synthetic split made by
+   ``data/synthetic.py`` (8 fake and 4 real train images, 2 fake and 1 real
+   val images), with the launch counts zeroed just before and checked
+   after (per train step no attention kernel, attention dropout taking the
+   composed path, merge 3/3, expand 6/6, refine 1/1; per validation forward
+   52/3/6/1); checks "Training Finished!", finite losses, the 7 CSV headers
+   and a strict load of ``best_model.pth``; runs the test CLI on that
+   checkpoint over the val split (its Score must equal the trainer's best
+   to 1e-6) and the predict CLI; then times the literal-config step (CUDA
+   events and the profiler's device time, peak memory) and an eval forward,
+   and prints the trainer's epoch wall time, loader wait a step and
+   validation time a case, each beside the card line;
 9. prints the kernels line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -1178,6 +1193,240 @@ def time_predict(step, images, label) -> float:
     return fwd_ms
 
 
+# phase 10: config.yaml as shipped (Swin-B, 1024^2, batch 2, bf16, every knob
+# on, attention dropout 0.05, drop-path 0.1) but for these keys; the data is
+# a synthetic split of 8 fake and 4 real train images, 2 fake and 1 real val
+CLI_EPOCHS = 2
+CLI_SPLIT = dict(n_fake_train=8, n_real_train=4, n_val_fake=2, n_val_real=1,
+                 n_test_fake=0, n_test_real=0)
+CLI_TIMED_STEPS = 5
+SCORE_TOL = 1e-6
+# launches of one literal-config train step: attention dropout sends every
+# training attention call to the composed path (port models/layers.py
+# WindowAttention.forward), so no attention kernel runs; and of one eval
+# forward at batch 1
+CLI_STEP = dict(patch_merge=3, patch_merge_bwd=3, patch_expand=6, patch_expand_bwd=6,
+                refine_head_res=1, refine_head_bwd=1)
+CLI_FORWARD = dict(window_attention=52, patch_merge=3, patch_expand=6, refine_head=1)
+
+
+def cli_config(run_dir: str, data: str) -> str:
+    """A YAML that takes ``config.yaml`` beside this script as its BASE and
+    changes only the data and output paths, the pretrained weights (the
+    SegFace file is not in the repo) and the epochs."""
+    import os
+
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config.yaml")
+    path = os.path.join(run_dir, "phase10.yaml")
+    with open(path, "w") as f:
+        f.write(f"BASE: ['{base}']\n"
+                f"DATA:\n  DATA_PATH: '{data}'\n"
+                f"MODEL:\n  PRETRAIN_WEIGHTS: none\n"
+                f"TRAIN:\n  MAX_EPOCHS: {CLI_EPOCHS}\n  WARMUP_EPOCHS: 1\n"
+                f"OUTPUT_DIR: '{os.path.join(run_dir, 'train')}'\n"
+                f"LIST_DIR: '{os.path.join(data, 'lists')}'\n")
+    return path
+
+
+def run_captured(fn, *args):
+    """``fn(*args)`` with its standard output captured and echoed."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    print("\n".join("  | " + line for line in buf.getvalue().splitlines()))
+    return result, buf.getvalue()
+
+
+def read_csv(path: str) -> list:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def training_run(build, card: str) -> None:
+    """Phase 10: the train CLI, the test CLI and the predict CLI over a
+    synthetic 1024^2 split, then the literal-config step timed on its own."""
+    import os
+    import shutil
+
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.cli import (
+        predict_cli,
+        test_cli,
+        train_cli,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.core.config import load_config
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.data.dataset import (
+        SegArtifactDataset,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.data.pipeline import (
+        TrainLoader,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.data.synthetic import (
+        generate_synthetic_dataset,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.metrics.csv_logger import (
+        HEADERS,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import MSUNet
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train.state import (
+        create_train_state,
+        make_eval_step,
+        make_train_step,
+    )
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    run_dir = os.path.join(root, "model_out", "chip_smoke_phase10")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    try:
+        data = os.path.join(run_dir, "data")
+        t0 = time.perf_counter()
+        generate_synthetic_dataset(data, img_size=2 * IMG, seed=0, **CLI_SPLIT)
+        print(f"synthetic split 1024^2 ({CLI_SPLIT}): {time.perf_counter() - t0:.1f} s")
+        cfg_path = cli_config(run_dir, data)
+        cfg = load_config(cfg_path)
+        out = cfg.OUTPUT_DIR
+        print(f"config: {cfg.DATA.IMG_SIZE}^2 batch {cfg.DATA.BATCH_SIZE} "
+              f"{cfg.TPU.COMPUTE_DTYPE} embed {cfg.MODEL.SWIN.EMBED_DIM} depths "
+              f"{list(cfg.MODEL.SWIN.DEPTHS)} attn_drop {cfg.MODEL.ATTN_DROP_RATE} "
+              f"drop_path {cfg.MODEL.DROP_PATH_RATE} epochs {cfg.TRAIN.MAX_EPOCHS}")
+
+        # -- the train CLI: the main path, counts zeroed just before --
+        build.reset_launches()
+        t0 = time.perf_counter()
+        _, text = run_captured(train_cli.main, ["--cfg", cfg_path])
+        train_wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        if "Training Finished!" not in text:
+            raise AssertionError("the train CLI did not print 'Training Finished!'")
+        with open(os.path.join(out, "log.txt")) as f:
+            timing = [json.loads(line.split("epoch_timing ", 1)[1])
+                      for line in f if "epoch_timing " in line]
+        steps = sum(t["steps"] for t in timing)
+        forwards = sum(t["val_cases"] for t in timing)
+        want = {k: steps * CLI_STEP.get(k, 0) + forwards * CLI_FORWARD.get(k, 0)
+                for k in build.LAUNCHES}
+        print(f"train CLI: {len(timing)} epochs, {steps} steps, {forwards} val forwards "
+              f"in {train_wall:.1f} s; launches {launches}")
+        if len(timing) != CLI_EPOCHS or launches != want:
+            raise AssertionError(f"train CLI launches {launches} != {want} "
+                                 f"({steps} steps x {CLI_STEP} + {forwards} forwards x "
+                                 f"{CLI_FORWARD})")
+        for name, header in HEADERS.items():
+            got = read_csv(os.path.join(out, name))[0]
+            if got != header:
+                raise AssertionError(f"{name} header {got} != {header}")
+        rows = read_csv(os.path.join(out, "val_metric_all_epoch.csv"))[1:]
+        losses = [float(r[3]) for r in rows]
+        scores = [float(r[6]) for r in rows]
+        if len(rows) != CLI_EPOCHS or not all(math.isfinite(x) for x in losses + scores):
+            raise AssertionError(f"val_metric_all_epoch.csv rows {rows}")
+        best = max(range(len(scores)), key=lambda i: (scores[i], -i))
+        print(f"per-epoch mean train loss {losses}, val Score {scores}")
+        for t in timing:
+            print(f"epoch {t['epoch']}: {t['train_s']:.2f} s wall for {t['steps']} steps "
+                  f"({1e3 * t['train_s'] / t['steps']:.1f} ms/step, host clock), loader "
+                  f"wait {1e3 * t['loader_wait_s'] / t['steps']:.2f} ms/step; validation "
+                  f"{1e3 * t['val_s'] / t['val_cases']:.1f} ms/case over {t['val_cases']} "
+                  f"cases; {card}")
+
+        payload = load_checkpoint(os.path.join(out, "best_model.pth"))
+        model = MSUNet.from_config(cfg)
+        model.load_state_dict(payload["model"], strict=True)
+        print(f"best_model.pth: epoch {payload['epoch']}, best_score "
+              f"{payload['best_score']!r}, loads strict=True")
+        if payload["epoch"] != best + 1 or payload["best_score"] != scores[best]:
+            raise AssertionError(f"best checkpoint {payload['epoch']} "
+                                 f"{payload['best_score']} != CSV epoch {best + 1}")
+
+        # -- the test CLI on that checkpoint over the val split --
+        build.reset_launches()
+        (dice, score, fpr), _ = run_captured(test_cli.main, [
+            "--cfg", cfg_path, "--check_point_dir", out, "--out_dir",
+            os.path.join(run_dir, "test"), "--split", "val"])
+        launches = dict(build.LAUNCHES)
+        n_val = CLI_SPLIT["n_val_fake"] + CLI_SPLIT["n_val_real"]
+        want = expect(build, **{k: n_val * v for k, v in CLI_FORWARD.items()})
+        print(f"test CLI: Score {score!r} vs the trainer's best {scores[best]!r} "
+              f"(|diff| {abs(score - scores[best]):.3e}, tol {SCORE_TOL:g}); launches "
+              f"{launches}")
+        if launches != want or not abs(score - scores[best]) <= SCORE_TOL:
+            raise AssertionError(f"test CLI: Score {score} / launches {launches} != "
+                                 f"{scores[best]} / {want}")
+
+        # -- the predict CLI on the same directory --
+        pred_dir = os.path.join(run_dir, "predict")
+        preds, _ = run_captured(predict_cli.main, [
+            "--cfg", cfg_path, "--check_point_dir", out, "--out_dir", pred_dir,
+            "--split", "val"])
+        pngs = [n for n in os.listdir(pred_dir) if n.endswith(".png")]
+        if len(preds) != n_val or len(pngs) != 4 * n_val:
+            raise AssertionError(f"predict CLI: {len(preds)} cases, {len(pngs)} files")
+
+        # -- the literal-config step and an eval forward, timed on their own --
+        loader = TrainLoader(SegArtifactDataset(data, cfg.LIST_DIR, "fake_train"),
+                             SegArtifactDataset(data, cfg.LIST_DIR, "real_train_all"),
+                             img_size=cfg.DATA.IMG_SIZE, seed=int(cfg.SEED),
+                             num_workers=2)
+        batch = next(iter(loader.epoch_batches(0)))
+        images, labels = batch["image"], batch["label"]
+        state = create_train_state(model, cfg)
+        step = make_train_step(model, float(cfg.TRAIN.TVERSKY_LOSS_ALPHA),
+                               float(cfg.TRAIN.TVERSKY_LOSS_BETA),
+                               float(cfg.TRAIN.LOSS_TVERSKY_BCE_MIX))
+        lr = float(cfg.TRAIN.BASE_LR)
+        step(state, images, labels, lr)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        step(state, images, labels, lr)
+        torch.cuda.synchronize()
+        if dict(build.LAUNCHES) != expect(build, **CLI_STEP):
+            raise AssertionError(f"literal-config step launches {build.LAUNCHES}")
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step_losses = [step(state, images, labels, lr) for _ in range(CLI_TIMED_STEPS)]
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / CLI_TIMED_STEPS
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step_losses = [x.item() for x in step_losses]
+        if not all(math.isfinite(x) for x in step_losses):
+            raise AssertionError(f"literal-config step losses {step_losses}")
+        rows = kernel_times(lambda: step(state, images, labels, lr))
+        dev_ms = sum(r[0] for r in rows)
+        print(f"literal-config train step 1024^2 b2 bf16: {step_ms:.2f} ms/step (CUDA "
+              f"events, {CLI_TIMED_STEPS} steps), device time {dev_ms:.2f} ms (profiler, "
+              f"one step; busy {dev_ms / step_ms:.3f}), peak memory {peak:.2f} GiB; "
+              f"launches {CLI_STEP}; {card}")
+        for ms, count, key in sorted(rows, reverse=True)[:12]:
+            print(f"  {ms:9.3f} ms {100 * ms / dev_ms:5.1f}% x{count:<4d} {key[:90]}")
+        del state, step
+        torch.cuda.empty_cache()
+        evaluate = make_eval_step(model, float(cfg.TRAIN.TVERSKY_LOSS_ALPHA),
+                                  float(cfg.TRAIN.TVERSKY_LOSS_BETA),
+                                  float(cfg.TRAIN.LOSS_TVERSKY_BCE_MIX), per_sample=True)
+        one = (images[:1], labels[:1])
+        evaluate(*one)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        evaluate(*one)
+        torch.cuda.synchronize()
+        if dict(build.LAUNCHES) != expect(build, **CLI_FORWARD):
+            raise AssertionError(f"eval forward launches {build.LAUNCHES}")
+        eval_ms = cuda_ms(lambda: evaluate(*one), 3, warmup=0)
+        print(f"eval forward 1024^2 b1 bf16: {eval_ms:.2f} ms (CUDA events); launches "
+              f"{CLI_FORWARD}; {card}")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
 @contextlib.contextmanager
 def phase(n: int, name: str):
     """Run one phase of the smoke; on any error say which on stdout and
@@ -1365,6 +1614,10 @@ def main() -> int:
         gelu_b.row["launches"] = launches["gelu_d2s4_bwd"]
         torch.cuda.empty_cache()
         check_train_e2e(train_args, rng, SWIN_T, "Swin-T")
+
+    with phase(10, "training run through the CLIs"):
+        training_run(_build, card)
+        torch.cuda.empty_cache()
 
     with phase(9, "report"):
         reports = [attn, attn_bwd, merge, merge_bwd, expand, expand_bwd, refine, res, bwd,

@@ -242,8 +242,10 @@ def default_config() -> CfgNode:
     # kernels, off meaning the composed PyTorch path; GELU_TANH picks the
     # GELU form; ATTN_WINDOW_GROUP and HOLD_WINDOW_LAYOUT are XLA layout
     # choices, read and ignored; MESH_SHAPE, SPATIAL_AXIS, MODEL_AXIS and
-    # REMAT other than auto/none raise (not ported yet); the prefetch,
-    # eval-batch and checkpoint keys belong to training.
+    # REMAT other than auto/none raise (not ported yet); the trainer reads
+    # PREFETCH_DEPTH (batches decoded ahead), DEVICE_PREFETCH (batches copied
+    # to the card ahead), EVAL_BATCH, and CKPT_BACKEND / CKPT_ASYNC
+    # ("orbax" raises: no PyTorch counterpart).
     c.TPU = CfgNode()
     c.TPU.COMPUTE_DTYPE = "bfloat16"  # bfloat16 | float32
     c.TPU.SOFTMAX_DTYPE = "float32"  # float32 | bfloat16
@@ -260,7 +262,7 @@ def default_config() -> CfgNode:
     c.TPU.PREFETCH_DEPTH = 2
     c.TPU.DEVICE_PREFETCH = 2
     c.TPU.EVAL_BATCH = 1
-    c.TPU.CKPT_BACKEND = "msgpack"  # msgpack | orbax
+    c.TPU.CKPT_BACKEND = "msgpack"  # msgpack (the single-file .pth writer) | orbax
     c.TPU.CKPT_ASYNC = False
     return c
 
@@ -316,3 +318,9 @@ def load_config(cfg_file: str) -> CfgNode:
     _update_config_from_file(config, cfg_file)
     return config
 
+
+def save_config(config: CfgNode, path: str) -> None:
+    """Write the resolved config as YAML (the ``config_used.yaml`` copy)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        f.write(config.dump_yaml())

@@ -10,10 +10,15 @@ and ``_apply_transform``) and their inverse: Linear ``(in, out) <->
 ``output``), LayerNorm ``scale`` <-> ``weight``.  ``relative_position_index``
 and ``attn_mask`` are buffers of the reference, not parameters, and are
 skipped.
+
+Also the encoder pretrain (``MODEL.PRETRAIN_WEIGHTS``): the SegFace and
+torchvision ImageNet-1k key tables of the JAX package's
+``models/weight_convert.py:180-243``, copied into an ``MSUNetSys`` in place.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -143,3 +148,104 @@ def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
             continue
         sd[k[len("ms_unet."):] if k.startswith("ms_unet.") else k] = v
     return sd
+
+
+# Encoder-pretrain key tables (reference MSUNet.py:86-122, 169-199)
+_SEGFACE_PREFIX_MAP = [
+    ("backbone.0.0.0.", "patch_embed.proj."),
+    ("backbone.0.0.2.", "patch_embed.norm."),
+    ("backbone.0.1.0.", "layers.0.blocks.0."),
+    ("backbone.0.1.1.", "layers.0.blocks.1."),
+    ("backbone.0.2.", "layers.0.downsample."),
+    ("backbone.0.3.0.", "layers.1.blocks.0."),
+    ("backbone.0.3.1.", "layers.1.blocks.1."),
+    ("backbone.0.4.", "layers.1.downsample."),
+    *[(f"backbone.0.5.{i}.", f"layers.2.blocks.{i}.") for i in range(18)],
+    ("backbone.0.6.", "layers.2.downsample."),
+    ("backbone.0.7.0.", "layers.3.blocks.0."),
+    ("backbone.0.7.1.", "layers.3.blocks.1."),
+]
+_IMAGENET1K_PREFIX_MAP = [
+    ("features.0.0.", "patch_embed.proj."),
+    ("features.0.2.", "patch_embed.norm."),
+    ("features.1.0.", "layers.0.blocks.0."),
+    ("features.1.1.", "layers.0.blocks.1."),
+    ("features.2.", "layers.0.downsample."),
+    ("features.3.0.", "layers.1.blocks.0."),
+    ("features.3.1.", "layers.1.blocks.1."),
+    ("features.4.", "layers.1.downsample."),
+    *[(f"features.5.{i}.", f"layers.2.blocks.{i}.") for i in range(18)],
+    ("features.6.", "layers.2.downsample."),
+    ("features.7.0.", "layers.3.blocks.0."),
+    ("features.7.1.", "layers.3.blocks.1."),
+]
+
+
+def remap_encoder_keys(state_dict: Mapping, kind: str) -> Dict:
+    """SegFace (``backbone.0.*``) or torchvision ImageNet-1k (``features.*``)
+    encoder keys -> the reference model's key space (the JAX package's
+    ``models/weight_convert.py::remap_encoder_keys``)."""
+    if kind == "segface":
+        table, root = _SEGFACE_PREFIX_MAP, "backbone"
+    elif kind == "imagenet1k":
+        table, root = _IMAGENET1K_PREFIX_MAP, "features"
+    else:
+        raise ValueError(f"unknown pretrain kind: {kind}")
+    # longest prefix first, so features.5.1x matches before features.5.1
+    table = sorted(table, key=lambda kv: -len(kv[0]))
+    out = {}
+    matched_root = False
+    for k, v in state_dict.items():
+        if not k.startswith(root):
+            continue
+        matched_root = True
+        if kind == "segface" and k.startswith("backbone.1."):
+            continue  # the face parser's decode head (reference :117-118)
+        for src, dst in table:
+            if k.startswith(src):
+                out[dst + k[len(src):]] = v
+                break
+        else:
+            raise ValueError(f"Key {k} not found in dictionary!!")
+    if not matched_root:
+        raise ValueError("No new keys from backbone!!")
+    return out
+
+
+def load_pretrained_encoder(model: torch.nn.Module, ckpt_path: str, kind: str,
+                            logger=None) -> int:
+    """Copy a SegFace / ImageNet-1k encoder checkpoint into ``model``
+    (an ``MSUNetSys``) in place; returns the number of tensors copied.
+
+    As the reference (``MSUNet.py:65-67``), a missing file leaves the model
+    unchanged, with an error logged; a shape mismatch raises."""
+    if not ckpt_path or not os.path.exists(ckpt_path):
+        if logger is not None:
+            logger.error(f"No {kind} pretrain found at: {ckpt_path}")
+        return 0
+    payload = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    if isinstance(payload, dict):
+        for key in ("state_dict_backbone", "model", "state_dict"):
+            if isinstance(payload.get(key), dict):
+                payload = payload[key]
+                break
+    remapped = remap_encoder_keys(
+        {k: v for k, v in payload.items() if torch.is_tensor(v)}, kind)
+    own = model.state_dict()
+    copied, skipped = 0, 0
+    with torch.no_grad():
+        for k, v in remapped.items():
+            if torch_key_to_flax_path(k) is None:
+                continue  # reference buffers
+            if k not in own:
+                skipped += 1
+                continue
+            if own[k].shape != v.shape:
+                raise ValueError(f"Key {k} does not match: checkpoint {tuple(v.shape)} "
+                                 f"vs model {tuple(own[k].shape)}")
+            own[k].copy_(v)
+            copied += 1
+    if logger is not None:
+        logger.info(f"pretrained {kind}: {copied} tensors loaded, {skipped} checkpoint "
+                    "keys without model counterpart")
+    return copied

@@ -1,7 +1,8 @@
-"""Label-free prediction and tiled inference (counterpart of the JAX
-package's ``train/inference.py``: ``artifact_prediction``,
-``tiled_predict``).  ``predict_step`` is the callable that
-:func:`..train.state.make_predict_step` returns; the model it closes
+"""Validation loss, label-free prediction and tiled inference (counterpart
+of the JAX package's ``train/inference.py``: ``validation_loss``,
+``artifact_prediction``, ``tiled_predict``).  ``eval_step`` and
+``predict_step`` are the callables that :func:`..train.state.make_eval_step`
+and :func:`..train.state.make_predict_step` return; the model they close
 over holds the parameters."""
 
 from __future__ import annotations
@@ -9,6 +10,20 @@ from __future__ import annotations
 from typing import Callable, List, Tuple
 
 import numpy as np
+
+
+def validation_loss(eval_step: Callable, val_loader, bool_break: bool = False,
+                    n_batches: int = 0) -> float:
+    """Mean of the eval step's (batch-mean) loss over the loader, or over its
+    first ``n_batches`` with ``bool_break`` (reference
+    ``validation_functions.py:8-34``)."""
+    losses: List[float] = []
+    for i_batch, batch in enumerate(val_loader):
+        if bool_break and i_batch >= n_batches:
+            break
+        _, loss = eval_step(batch["image"], batch["label"])
+        losses.append(float(loss.mean()))
+    return sum(losses) / len(losses) if losses else float("nan")
 
 
 def artifact_prediction(predict_step: Callable, loader) -> List[Tuple[str, np.ndarray]]:

@@ -115,11 +115,12 @@ def make_train_step(model: torch.nn.Module, loss_alpha: float, loss_beta: float,
                                loss_beta, loss_mix)
             (loss_i / acc).backward()
             loss = loss + loss_i.detach()
-        # parameters the loss does not reach (the last stage of each cent
-        # decoder, whose output the reference drops) get zero gradients, so
-        # AdamW still decays them, as optax does
+        # trainable parameters the loss does not reach (the last stage of
+        # each cent decoder, whose output the reference drops) get zero
+        # gradients, so AdamW still decays them, as optax does; a frozen
+        # parameter (requires_grad False) keeps none: no update, no decay
         for p in model.parameters():
-            if p.grad is None:
+            if p.grad is None and p.requires_grad:
                 p.grad = torch.zeros_like(p)
         state.optimizer.step()
         state.step += 1

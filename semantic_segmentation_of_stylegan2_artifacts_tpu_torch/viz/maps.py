@@ -1,7 +1,7 @@
 """Prediction exports: grey heatmap, binary mask, colour heatmap, contour
-overlay (counterpart of the JAX package's ``viz/maps.py``; reference
-``scripts/map_generator.py``).  PIL, matplotlib and cv2 are imported only
-inside the writers."""
+overlay and multi-class class maps (counterpart of the JAX package's
+``viz/maps.py``; reference ``scripts/map_generator.py``).  PIL, matplotlib
+and cv2 are imported only inside the writers."""
 
 from __future__ import annotations
 
@@ -84,14 +84,54 @@ def overlay_mask_on_image(img_hw3: np.ndarray, mask_hw: np.ndarray, out_png: str
     Image.fromarray(img, "RGB").save(out_png)
 
 
+# colours for class ids 1..12 (0 = background stays black); multi-class
+# artifact segmentation is an extension beyond the binary reference task
+_CLASS_PALETTE = np.array(
+    [(0, 0, 0), (230, 25, 75), (60, 180, 75), (255, 225, 25), (0, 130, 200),
+     (245, 130, 48), (145, 30, 180), (70, 240, 240), (240, 50, 230),
+     (210, 245, 60), (250, 190, 212), (0, 128, 128), (220, 190, 255)],
+    dtype=np.uint8)
+
+
+def save_class_map(probs_hwc: np.ndarray, out_png: str, bg_threshold: float = 0.5) -> np.ndarray:
+    """Colour PNG of the argmax class per pixel from per-class sigmoids
+    (channel ``c`` is class id ``c + 1``); a pixel whose best probability is
+    under ``bg_threshold`` is background."""
+    from PIL import Image
+
+    p = np.asarray(probs_hwc, np.float32)
+    cls = np.where(p.max(axis=-1) >= bg_threshold, p.argmax(axis=-1), 0)
+    rgb = _CLASS_PALETTE[np.minimum(cls, len(_CLASS_PALETTE) - 1)]
+    Image.fromarray(rgb, "RGB").save(out_png)
+    return rgb
+
+
+def export_class_maps(output_saver: Iterable[Tuple[str, np.ndarray]], pred_dir: str,
+                      bg_threshold: float = 0.5) -> List[str]:
+    """``{case}_class_map.png`` for each ``(case, (H, W, C) probs)``."""
+    os.makedirs(pred_dir, exist_ok=True)
+    written: List[str] = []
+    for case_name, probs in output_saver:
+        out = os.path.join(pred_dir, f"{case_name}_class_map.png")
+        save_class_map(np.asarray(probs), out, bg_threshold)
+        written.append(out)
+    return written
+
+
 def create_bin_heat_mask_from_list(output_saver: Iterable[Tuple[str, np.ndarray]],
                                    pred_dir: str, dataset_root: str,
-                                   threshold: float = 0.5) -> List[str]:
-    """Per case: ``{case}_grey_heats.png``, ``{case}_bin_mask.png``,
-    ``{case}_overlay_color.png`` (colour heatmap) and
-    ``{case}_overlay_contour.png`` (the trainer-side naming the predict CLI
-    uses, reference ``trainer.py:458-491``); the source image is found in
+                                   threshold: float = 0.5,
+                                   include_original: bool = False) -> List[str]:
+    """Per case: ``{case}_grey_heats.png`` and ``{case}_bin_mask.png``, then,
+    as the trainer names them (reference ``trainer.py:458-491``), the colour
+    heatmap ``{case}_overlay_color.png`` and the contour overlay
+    ``{case}_overlay_contour.png``; with ``include_original``, as the test
+    script names them (reference ``test.py:183-224``), a copy of the image
+    ``{case}.png``, the colour heatmap ``{case}_heatmap.png`` and the contour
+    overlay ``{case}_overlay_color.png``.  The source image is found in
     ``fake_images/`` or ``real_images/`` by the "09" id prefix."""
+    from PIL import Image
+
     os.makedirs(pred_dir, exist_ok=True)
     written: List[str] = []
     for case_name, pred in output_saver:
@@ -104,11 +144,21 @@ def create_bin_heat_mask_from_list(output_saver: Iterable[Tuple[str, np.ndarray]
         if not os.path.exists(img_path):
             raise FileNotFoundError(f"Image not found: {img_path}")
         image = load_rgb(img_path)
-        paths = [os.path.join(pred_dir, f"{case_name}_{s}.png")
-                 for s in ("grey_heats", "bin_mask", "overlay_color", "overlay_contour")]
-        save_grey_heatmap(heat, paths[0])
-        save_binary_mask(heat, paths[1], threshold)
-        save_color_heatmap(image, heat, paths[2], alpha=0.45)
-        overlay_mask_on_image(image, heat > threshold, paths[3])
-        written += paths
+        grey, binp = (os.path.join(pred_dir, f"{case_name}_{s}.png")
+                      for s in ("grey_heats", "bin_mask"))
+        save_grey_heatmap(heat, grey)
+        save_binary_mask(heat, binp, threshold)
+        written += [grey, binp]
+        if include_original:
+            orig = os.path.join(pred_dir, f"{case_name}.png")
+            Image.fromarray(image, "RGB").save(orig)
+            written.append(orig)
+            colp, ovp = (os.path.join(pred_dir, f"{case_name}_{s}.png")
+                         for s in ("heatmap", "overlay_color"))
+        else:
+            colp, ovp = (os.path.join(pred_dir, f"{case_name}_{s}.png")
+                         for s in ("overlay_color", "overlay_contour"))
+        save_color_heatmap(image, heat, colp, alpha=0.45)
+        overlay_mask_on_image(image, heat > threshold, ovp)
+        written += [colp, ovp]
     return written

@@ -8,8 +8,9 @@
 * The predict CLI over a ``data/synthetic.py`` dataset writes the same
   file names as the JAX CLI from the same ``.pth`` checkpoint.
 * With no CUDA and no ``device="cpu"`` the entry points raise.
-* Importing the port and running a CPU forward and a CPU train step, in
-  a fresh process, loads neither jax, flax nor the JAX package.
+* Importing the port (the three CLIs, the trainer and the checkpoint
+  module among it) and running a CPU forward and a CPU train step, in a
+  fresh process, loads neither jax, flax nor the JAX package.
 """
 
 import logging
@@ -125,7 +126,9 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 _IMPORT_CHECK = """
 import sys, numpy as np, torch
-from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.cli import predict_cli
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.cli import (
+    predict_cli, test_cli, train_cli)
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train import checkpoint, trainer
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import MSUNet
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train.state import make_predict_step
 m = MSUNet(img_size=32, embed_dim=128, depths=(1, 1, 1, 1), num_heads=(2, 2, 4, 4),
