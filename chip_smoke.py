@@ -65,10 +65,11 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    runs the GELU+depth-to-space kernel: its predict forward and its train
    step, each with its launch counts, times and a profile, and a float32
    train step against the composed path;
-10. (run before 9) trains ``config.yaml`` as shipped (Swin-B, 1024^2,
-   batch 2, bf16, every knob on, attention dropout 0.05, drop-path 0.1;
-   only the paths, ``PRETRAIN_WEIGHTS: none`` and 2 epochs with 1 of warm-up
-   changed) through the port's train CLI on a synthetic split made by
+10. (run before 9, as are 11-13) trains ``config.yaml`` as shipped (Swin-B,
+   1024^2, batch 2, bf16, every knob on, attention dropout 0.05, drop-path
+   0.1, ``TPU.REMAT: auto``, which resolves to ``high_res`` there as in the
+   JAX package; only the paths, ``PRETRAIN_WEIGHTS: none`` and 2 epochs with
+   1 of warm-up changed) through the port's train CLI on a synthetic split made by
    ``data/synthetic.py`` (8 fake and 4 real train images, 2 fake and 1 real
    val images), with the launch counts zeroed just before and checked
    after (per train step no attention kernel, attention dropout taking the
@@ -80,6 +81,24 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    events and the profiler's device time, peak memory) and an eval forward,
    and prints the trainer's epoch wall time, loader wait a step and
    validation time a case, each beside the card line;
+11. recomputation: drives phase 6's Swin-B train step (512^2 b8, drop-path
+   0.1) under ``TPU.REMAT`` none, full, dots and high_res, each with its
+   launch counts (the attention forward again in every recomputed block
+   that reaches the loss: 52 / 100 / 100 / 62), ms/step, device time, busy
+   share and peak memory; then one float32 step under each policy against
+   ``none`` from the same weights and noise (512^2 b2, drop-path on), and
+   ``config.yaml``'s own noise at 1024^2 b2 under the ``high_res`` its
+   ``auto`` resolves to against ``none``: loss and every gradient within
+   ``REMAT_*_TOL``, and whether the bits matched;
+12. grid search: the port's run CLI over a copy of ``config.yaml`` at 256^2
+   on a synthetic split, one epoch a trial, attention dropout 0.05, alpha
+   0.3 / 0.4, lr 8.5e-6 / 3e-5 (5 trials, each the port's train CLI in its
+   own process on the card): every trial's numeric ``Score``, the ``BEST:``
+   line, ``config.yaml`` unchanged;
+13. the parity tool at PARITY.md r5's setting (512^2, 15 epochs, both arms;
+   launch counts zeroed before each arm: none in the parity arm, the
+   kernels in the deploy arm) with its deltas beside r5's, then the epoch
+   bench at 512^2 batch 8 over a synthetic 32 + 32 split (its JSON line);
 9. prints the kernels line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -94,6 +113,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -1029,18 +1049,19 @@ def kernel_times(fn) -> list:
 
 
 def profile_forward(step, images, fwd_ms: float, top: int = 12,
-                    what: str = "forward") -> None:
+                    what: str = "forward") -> float:
     """Device time by kernel over one call of ``step(images)`` (a forward,
-    or a train step), beside its time from CUDA events."""
+    or a train step), beside its time from CUDA events; returns the total."""
     rows = kernel_times(lambda: step(images))
     if not rows:
         print("profile: the profiler saw no device time")
-        return
+        return float("nan")
     total = sum(r[0] for r in rows)
     print(f"profile of one {what}: device time {total:.2f} ms over {len(rows)} kernel "
           f"names; busy share {total / fwd_ms:.3f} of the {fwd_ms:.2f} ms {what}")
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         print(f"  {ms:9.3f} ms {100 * ms / total:5.1f}% x{count:<4d} {key[:90]}")
+    return total
 
 
 def deployment_config(default_config, **changes):
@@ -1086,10 +1107,11 @@ def train_batch(rng, batch):
     return images, labels
 
 
-def run_train_step(train_args, build, rng, changes, want, label, n_timed=10) -> dict:
+def run_train_step(train_args, build, rng, changes, want, label, n_timed=10) -> tuple:
     """A train step of the configuration ``changes`` at 512^2 batch 8: its
     launch counts against ``want``, ``n_timed`` timed steps on one batch
-    (the loss must fall), a profile of one; returns the launches."""
+    (the loss must fall), a profile of one; returns the launches and the
+    step's ms (CUDA events), device ms (profiler) and peak GiB."""
     default_config, MSUNet, create_train_state, make_train_step = train_args
     cfg = deployment_config(default_config, **TRAIN_CHANGES, **changes)
     model = MSUNet.from_config(cfg)
@@ -1117,15 +1139,15 @@ def run_train_step(train_args, build, rng, changes, want, label, n_timed=10) -> 
     wall = time.perf_counter() - t0
     losses = [x.item() for x in losses]
     step_ms = start.elapsed_time(end) / n_timed
+    peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{label} train 512^2 b{B} bf16: {step_ms:.2f} ms/step (CUDA events), "
           f"{B * n_timed / wall:.2f} img/s (host clock, synchronised), peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss "
-          f"{losses[0]:.5f} -> {losses[-1]:.5f} over {n_timed} steps")
+          f"{peak:.2f} GiB; loss {losses[0]:.5f} -> {losses[-1]:.5f} over {n_timed} steps")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{label} train losses not finite and falling: {losses}")
-    profile_forward(lambda imgs: step(state, imgs, labels, 1e-4), images, step_ms,
-                    top=15, what=f"{label} train step")
-    return launches
+    dev_ms = profile_forward(lambda imgs: step(state, imgs, labels, 1e-4), images,
+                             step_ms, top=15, what=f"{label} train step")
+    return launches, {"ms": step_ms, "device_ms": dev_ms, "peak_gib": peak}
 
 
 def check_train_e2e(train_args, rng, changes, label):
@@ -1270,7 +1292,10 @@ def training_run(build, card: str) -> None:
     from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.metrics.csv_logger import (
         HEADERS,
     )
-    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import MSUNet
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import (
+        MSUNet,
+        resolve_remat,
+    )
     from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train.checkpoint import (
         load_checkpoint,
     )
@@ -1292,6 +1317,12 @@ def training_run(build, card: str) -> None:
         cfg_path = cli_config(run_dir, data)
         cfg = load_config(cfg_path)
         out = cfg.OUTPUT_DIR
+        flags = resolve_remat(cfg)
+        print(f"memory policy: TPU.REMAT {cfg.TPU.REMAT!r} resolves to (use_remat, "
+              f"remat_high_res, remat_policy) {flags}: high_res, as JAX "
+              f"models/msunet.py:501-524 resolves it (1024^2, attention dropout on)")
+        if flags != (False, True, ""):
+            raise AssertionError(f"config.yaml's memory policy {flags} is not high_res")
         print(f"config: {cfg.DATA.IMG_SIZE}^2 batch {cfg.DATA.BATCH_SIZE} "
               f"{cfg.TPU.COMPUTE_DTYPE} embed {cfg.MODEL.SWIN.EMBED_DIM} depths "
               f"{list(cfg.MODEL.SWIN.DEPTHS)} attn_drop {cfg.MODEL.ATTN_DROP_RATE} "
@@ -1401,9 +1432,10 @@ def training_run(build, card: str) -> None:
             raise AssertionError(f"literal-config step losses {step_losses}")
         rows = kernel_times(lambda: step(state, images, labels, lr))
         dev_ms = sum(r[0] for r in rows)
-        print(f"literal-config train step 1024^2 b2 bf16: {step_ms:.2f} ms/step (CUDA "
-              f"events, {CLI_TIMED_STEPS} steps), device time {dev_ms:.2f} ms (profiler, "
-              f"one step; busy {dev_ms / step_ms:.3f}), peak memory {peak:.2f} GiB; "
+        print(f"literal-config train step 1024^2 b2 bf16, high_res: {step_ms:.2f} ms/step "
+              f"(CUDA events, {CLI_TIMED_STEPS} steps), device time {dev_ms:.2f} ms "
+              f"(profiler, one step; busy {dev_ms / step_ms:.3f}), peak memory {peak:.2f} "
+              f"GiB (recomputing nothing it read 309-489 ms and 22.83-22.88 GiB, PERF.md); "
               f"launches {CLI_STEP}; {card}")
         for ms, count, key in sorted(rows, reverse=True)[:12]:
             print(f"  {ms:9.3f} ms {100 * ms / dev_ms:5.1f}% x{count:<4d} {key[:90]}")
@@ -1423,6 +1455,282 @@ def training_run(build, card: str) -> None:
         eval_ms = cuda_ms(lambda: evaluate(*one), 3, warmup=0)
         print(f"eval forward 1024^2 b1 bf16: {eval_ms:.2f} ms (CUDA events); launches "
               f"{CLI_FORWARD}; {card}")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
+# phase 11: bench.py's step under each memory policy (TPU.REMAT).  Attention
+# forward launches of one step: 52, plus one more in each recomputed block
+# whose output reaches the loss (the last stage of each cent decoder, 2 + 2
+# blocks, has no backward, so nothing recomputes it): all 48 under full and
+# dots (the kernel is no non-batched product, so dots recomputes it, as JAX
+# does), and under high_res the 10 blocks of the stages of width <= 256 that
+# reach the loss (encoder stages 0 and 1, the main decoder's 256 and 128
+# stages, cent decoder 1's 256 stage).  Every other count is the step's own:
+# the patch ops and the head are outside the blocks and never recomputed.
+REMAT_ATTN_FWD = {"none": 52, "full": 100, "dots": 100, "high_res": 62}
+# f32, a policy against none from the same weights and noise: the recompute
+# replays the forward's kernels and masks, so only library reductions that
+# are not deterministic (cuDNN weight gradients) may reorder a sum
+REMAT_LOSS_TOL = 1e-6
+REMAT_GRAD_TOL = 1e-5
+
+
+def train_grads(train_args, cfg, images, labels) -> tuple:
+    """One float32 train step of ``cfg``'s model from its seeded weights:
+    the loss, every parameter's gradient and the state-dict keys."""
+    _, MSUNet, create_train_state, make_train_step = train_args
+    model = MSUNet.from_config(cfg, dtype=torch.float32)
+    state = create_train_state(model, cfg)
+    t = cfg.TRAIN
+    loss = make_train_step(model, float(t.TVERSKY_LOSS_ALPHA), float(t.TVERSKY_LOSS_BETA),
+                           float(t.LOSS_TVERSKY_BCE_MIX))(state, images, labels, 1e-4)
+    return loss.item(), {n: p.grad for n, p in model.named_parameters()}, \
+        list(model.state_dict())
+
+
+def check_remat_f32(train_args, cfgs: dict, images, labels, label: str) -> None:
+    """Each policy's float32 train step against the first's (``none``): the
+    loss within REMAT_LOSS_TOL, each gradient within REMAT_GRAD_TOL of
+    max(1, max|g|), the same state-dict keys; says whether the bits matched."""
+    names = list(cfgs)
+    ref_loss, ref_grads, ref_keys = train_grads(train_args, cfgs[names[0]], images, labels)
+    torch.cuda.empty_cache()
+    for name in names[1:]:
+        loss, grads, keys = train_grads(train_args, cfgs[name], images, labels)
+        dl = abs(loss - ref_loss)
+        worst, worst_name, bits = 0.0, "", loss == ref_loss
+        for n, g in ref_grads.items():
+            bits = bits and torch.equal(grads[n], g)
+            rel = (grads[n] - g).abs().max().item() / max(1.0, g.abs().max().item())
+            if not math.isfinite(rel) or rel > worst:
+                worst, worst_name = rel, n
+        print(f"{label} f32 train step, {name} vs {names[0]}: loss {loss:.8f} vs "
+              f"{ref_loss:.8f}, |diff| {dl:.3e} (tol {REMAT_LOSS_TOL:g}); worst gradient "
+              f"{worst_name} rel {worst:.3e} (tol {REMAT_GRAD_TOL:g}); bits "
+              f"{'equal' if bits else 'differ'}")
+        if not dl <= REMAT_LOSS_TOL or not worst <= REMAT_GRAD_TOL or keys != ref_keys:
+            raise AssertionError(f"{label}: the {name} step differs from {names[0]}'s")
+        del grads
+        torch.cuda.empty_cache()
+
+
+def recomputation(train_args, build, rng, card: str) -> None:
+    """Phase 11: bench.py's Swin-B step at 512^2 b8 under each policy
+    (drop-path 0.1: the stochastic-depth replay on the kernel path), then
+    float32 steps against ``none``: at 512^2 b2 with drop-path on, and at
+    1024^2 b2 with config.yaml's own noise (attention dropout 0.05 on the
+    composed attention) under the policy its ``auto`` resolves to."""
+    import os
+
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.core.config import (
+        load_config,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import (
+        resolve_remat,
+    )
+
+    default_config = train_args[0]
+    rows = {}
+    for policy, attn in REMAT_ATTN_FWD.items():
+        _, stats = run_train_step(
+            train_args, build, rng, {"TPU.REMAT": policy}, expect(
+                build, window_attention=attn, window_attention_bwd=48, patch_merge=3,
+                patch_merge_bwd=3, patch_expand=6, patch_expand_bwd=6, refine_head_res=1,
+                refine_head_bwd=1), f"Swin-B REMAT {policy}")
+        rows[policy] = stats
+        torch.cuda.empty_cache()
+    print(f"memory policies, Swin-B train 512^2 b{B} bf16, every knob on ({card}):")
+    for policy, r in rows.items():
+        print(f"  {policy:9s} {r['ms']:8.2f} ms/step (CUDA events)  {r['device_ms']:8.2f} ms "
+              f"device  busy {r['device_ms'] / r['ms']:.3f}  peak {r['peak_gib']:6.2f} GiB  "
+              f"attention launches {REMAT_ATTN_FWD[policy]}/48")
+
+    images, labels = train_batch(rng, 2)
+    check_remat_f32(train_args, {p: deployment_config(default_config, **TRAIN_CHANGES,
+                                                      **{"TPU.REMAT": p})
+                                 for p in REMAT_ATTN_FWD}, images, labels, "Swin-B 512^2 b2")
+    torch.cuda.empty_cache()
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config.yaml")
+    literal = load_config(path)
+    if resolve_remat(literal) != (False, True, ""):
+        raise AssertionError(f"config.yaml resolves to {resolve_remat(literal)}")
+    none = load_config(path)
+    none.defrost()
+    none.TPU.REMAT = "none"
+    none.freeze()
+    big = np.random.default_rng(1)
+    images = big.integers(0, 256, (2, 2 * IMG, 2 * IMG, 3), dtype=np.uint8)
+    labels = (big.random((2, 2 * IMG, 2 * IMG)) > 0.8).astype(np.uint8)
+    check_remat_f32(train_args, {"none": none, "high_res (auto)": literal}, images, labels,
+                    "config.yaml 1024^2 b2")
+
+
+# phase 12: the run CLI's three sweeps over a copy of config.yaml at 256^2,
+# one epoch a trial, on a synthetic split: 1 + 2 + 2 trials
+GRID_IMG = 256
+GRID_SPLIT = dict(n_fake_train=4, n_real_train=2, n_val_fake=1, n_val_real=1,
+                  n_test_fake=0, n_test_real=0)
+GRID_ARGS = ["--attn_drop", "0.05", "--alpha", "0.3", "0.4", "--lr", "8.5e-6", "3e-5"]
+
+
+def grid_search(card: str) -> None:
+    """Phase 12: the port's run CLI, each trial the port's train CLI in a
+    process of its own on the card; ``config.yaml`` itself must not change."""
+    import hashlib
+    import os
+    import shutil
+
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.cli import run_cli
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.core.yaml_editor import (
+        ConfigParser,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.data.synthetic import (
+        generate_synthetic_dataset,
+    )
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    shipped = os.path.join(root, "config.yaml")
+    with open(shipped, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    run_dir = os.path.join(root, "model_out", "chip_smoke_phase12")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    cwd = os.getcwd()
+    os.chdir(root)  # a trial runs ``python -m <port>.cli.train_cli`` from here
+    try:
+        data = os.path.join(run_dir, "data")
+        generate_synthetic_dataset(data, img_size=GRID_IMG, seed=0, **GRID_SPLIT)
+        cfg = os.path.join(run_dir, "config.yaml")
+        shutil.copyfile(shipped, cfg)
+        parser = ConfigParser(cfg)
+        parser.set_values([("DATA.IMG_SIZE", GRID_IMG), ("DATA.DATA_PATH", data),
+                           ("LIST_DIR", os.path.join(data, "lists")),
+                           ("MODEL.PRETRAIN_WEIGHTS", "none"), ("TRAIN.MAX_EPOCHS", 1),
+                           ("TRAIN.WARMUP_EPOCHS", 0), ("SAVE_BEST_RUN", False),
+                           ("SHOW_PREDICTIONS", 0)])
+        parser.save()
+        out = os.path.join(run_dir, "RUN1")
+        t0 = time.perf_counter()
+        best, text = run_captured(run_cli.main, ["--cfg", cfg, "--root_out", out] + GRID_ARGS)
+        wall = time.perf_counter() - t0
+        csvs = sorted(os.path.join(d, n) for d, _, files in os.walk(out) for n in files
+                      if n == "val_metric_all_epoch.csv")
+        scores = []
+        for path in csvs:
+            rows = read_csv(path)
+            score = float(rows[-1][rows[0].index("Score")])
+            if len(rows) != 2 or not math.isfinite(score):
+                raise AssertionError(f"{path}: rows {rows}")
+            scores.append((os.path.relpath(os.path.dirname(path), out), score))
+        best_line = [ln for ln in text.splitlines() if ln.startswith("BEST:")]
+        print(f"run CLI: {len(csvs)} trials through the port's train CLI in {wall:.1f} s "
+              f"({wall / max(1, len(csvs)):.1f} s a trial, {GRID_IMG}^2, 1 epoch; {card}); "
+              f"Score by trial {scores}; {best_line}")
+        if len(csvs) != 5 or len(best_line) != 1:
+            raise AssertionError(f"run CLI: {len(csvs)} trials, BEST lines {best_line}")
+        with open(shipped, "rb") as f:
+            if hashlib.sha256(f.read()).hexdigest() != digest:
+                raise AssertionError("the run CLI changed config.yaml")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
+# phase 13: the parity tool at PARITY.md r5's setting, and the epoch bench.
+# Launches of one parity-tool train step (depths 2/2/2/2: 20 blocks, of which
+# the last stage of each cent decoder, 2 + 2, has no backward) and of one
+# validation forward, in the deploy arm; the parity arm launches none
+PARITY_IMG, PARITY_EPOCHS = 512, 15
+PARITY_STEP = dict(window_attention=20, window_attention_bwd=16, patch_merge=3,
+                   patch_merge_bwd=3, patch_expand=6, patch_expand_bwd=6,
+                   refine_head_res=1, refine_head_bwd=1)
+PARITY_FORWARD = dict(window_attention=20, patch_merge=3, patch_expand=6, refine_head=1)
+PARITY_BAR = 1e-4  # PARITY.md r5: deltas within 1e-4 over 15 epochs
+# the epoch bench at 512^2 batch 8 over 32 + 32 train images
+EPOCH_BENCH_SPLIT = dict(n_fake_train=32, n_real_train=32)
+EPOCH_BENCH_ARGS = ["--img", str(PARITY_IMG), "--merge", "4", "--workers", "8"]
+
+
+class EpochTimings(logging.Handler):
+    """Collects the trainer's ``epoch_timing`` log records."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.epochs = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith("epoch_timing "):
+            self.epochs.append(json.loads(msg.split(" ", 1)[1]))
+
+
+def parity_and_epoch_bench(build, card: str) -> None:
+    """Phase 13: the parity tool's two arms on one synthetic split (launch
+    counts zeroed before each arm and read after it), its deltas beside
+    PARITY.md r5's, then the epoch bench's JSON line."""
+    import os
+    import shutil
+
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.data.synthetic import (
+        generate_synthetic_dataset,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools import (
+        epoch_bench,
+        parity_vs_deploy,
+    )
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    run_dir = os.path.join(root, "model_out", "chip_smoke_phase13")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    try:
+        data = os.path.join(run_dir, "data")
+        generate_synthetic_dataset(data, img_size=PARITY_IMG, **parity_vs_deploy.SPLIT)
+        args = parity_vs_deploy.build_arg_parser().parse_args(
+            ["--img", str(PARITY_IMG), "--epochs", str(PARITY_EPOCHS)])
+        rows = {}
+        for tag, deploy in (("parity", False), ("deploy", True)):
+            timing = EpochTimings()
+            log = logging.getLogger(tag)
+            log.setLevel(logging.INFO)
+            log.addHandler(timing)
+            build.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                rows[tag], _ = run_captured(parity_vs_deploy.run_one, tag, data, run_dir,
+                                            deploy, args)
+            finally:
+                log.removeHandler(timing)
+            launches = dict(build.LAUNCHES)
+            steps = sum(t["steps"] for t in timing.epochs)
+            forwards = sum(t["val_cases"] for t in timing.epochs)
+            want = {k: (steps * PARITY_STEP.get(k, 0) + forwards * PARITY_FORWARD.get(k, 0))
+                    if deploy else 0 for k in build.LAUNCHES}
+            print(f"parity tool, {tag} arm: {len(timing.epochs)} epochs, {steps} steps, {forwards} "
+                  f"val forwards in {time.perf_counter() - t0:.1f} s; launches {launches}")
+            if len(timing.epochs) != PARITY_EPOCHS or launches != want:
+                raise AssertionError(f"{tag} arm launches {launches} != {want}")
+        deltas, _ = run_captured(parity_vs_deploy.print_deltas, rows["parity"],
+                                 rows["deploy"])
+        if not all(math.isfinite(d) for d in deltas.values()):
+            raise AssertionError(f"parity deltas {deltas}")
+        print(f"parity deltas at {PARITY_IMG}^2, {PARITY_EPOCHS} epochs (deploy - parity; "
+              f"PARITY.md r5: mean_accuracy 0, mean_val_loss -3e-5, mean_train_loss "
+              f"+2e-5; bar {PARITY_BAR:g}): " + ", ".join(
+                  f"{k} {d:+.6f}{'' if abs(d) <= PARITY_BAR else ' (beyond the bar)'}"
+                  for k, d in deltas.items() if k != "epoch") + f"; {card}")
+
+        bench_data = os.path.join(run_dir, "bench")
+        generate_synthetic_dataset(bench_data, img_size=PARITY_IMG, **EPOCH_BENCH_SPLIT)
+        result, _ = run_captured(epoch_bench.main, EPOCH_BENCH_ARGS + ["--data_dir",
+                                                                        bench_data])
+        keys = {"metric", "value", "unit", "compute_only", "host_efficiency",
+                "native_decode", "batch"}
+        if not keys <= set(result) or not result["value"] > 0:
+            raise AssertionError(f"epoch bench line {result}")
+        print(f"epoch bench: {json.dumps(result)}; {card}")
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
 
@@ -1575,7 +1883,7 @@ def main() -> int:
         # output), so autograd runs no backward through it.  Every merge and
         # expand has a backward: cent decoder 2's expand feeds skip 0, cent
         # decoder 1's two feed skips 1 and 0, the main decoder's three the head.
-        launches = run_train_step(
+        launches, _ = run_train_step(
             train_args, _build, rng, {}, expect(
                 _build, window_attention=52, window_attention_bwd=48, patch_merge=3,
                 patch_merge_bwd=3, patch_expand=6, patch_expand_bwd=6, refine_head_res=1,
@@ -1606,7 +1914,7 @@ def main() -> int:
         profile_forward(step, images, fwd_ms, what="Swin-T forward")
         del step, model
         torch.cuda.empty_cache()
-        launches = run_train_step(
+        launches, _ = run_train_step(
             train_args, _build, rng, SWIN_T, expect(
                 _build, window_attention=28, window_attention_bwd=24, patch_merge=3,
                 patch_merge_bwd=3, patch_expand=6, patch_expand_bwd=6, gelu_d2s4=1,
@@ -1617,6 +1925,17 @@ def main() -> int:
 
     with phase(10, "training run through the CLIs"):
         training_run(_build, card)
+        torch.cuda.empty_cache()
+
+    with phase(11, "recomputation"):
+        recomputation(train_args, _build, rng, card)
+        torch.cuda.empty_cache()
+
+    with phase(12, "grid search"):
+        grid_search(card)
+
+    with phase(13, "parity and epoch bench"):
+        parity_and_epoch_bench(_build, card)
         torch.cuda.empty_cache()
 
     with phase(9, "report"):

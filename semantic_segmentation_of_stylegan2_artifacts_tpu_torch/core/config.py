@@ -203,7 +203,7 @@ def default_config() -> CfgNode:
     c.TRAIN.WARMUP_LR = 5e-7
     c.TRAIN.MIN_LR = 5e-6
     c.TRAIN.ACCUMULATION_STEPS = 1
-    c.TRAIN.USE_CHECKPOINT = False  # gradient recomputation (raises: not ported yet)
+    c.TRAIN.USE_CHECKPOINT = False  # recompute every stage's Swin blocks (as TPU.REMAT full)
     c.TRAIN.TVERSKY_LOSS_ALPHA = 0.4
     c.TRAIN.TVERSKY_LOSS_BETA = 0.6
     c.TRAIN.LOSS_TVERSKY_BCE_MIX = 0.5
@@ -241,8 +241,9 @@ def default_config() -> CfgNode:
     # knobs (USE_PALLAS_ATTENTION, FUSED_HEAD, FUSED_PATCH) select the CUDA
     # kernels, off meaning the composed PyTorch path; GELU_TANH picks the
     # GELU form; ATTN_WINDOW_GROUP and HOLD_WINDOW_LAYOUT are XLA layout
-    # choices, read and ignored; MESH_SHAPE, SPATIAL_AXIS, MODEL_AXIS and
-    # REMAT other than auto/none raise (not ported yet); the trainer reads
+    # choices, read and ignored; MESH_SHAPE, SPATIAL_AXIS and MODEL_AXIS
+    # raise (not ported yet); REMAT recomputes Swin blocks in training
+    # (models/msunet.py::resolve_remat); the trainer reads
     # PREFETCH_DEPTH (batches decoded ahead), DEVICE_PREFETCH (batches copied
     # to the card ahead), EVAL_BATCH, and CKPT_BACKEND / CKPT_ASYNC
     # ("orbax" raises: no PyTorch counterpart).

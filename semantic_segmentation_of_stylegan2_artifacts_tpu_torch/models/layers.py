@@ -16,6 +16,11 @@ stochastic depth on both residuals of a Swin block, MLP dropout,
 attention-probability and projection dropout (which put attention on the
 composed path, as JAX ``models/layers.py:257-262`` does).  Their noise
 comes from the ``torch.Generator`` set with :func:`noise_generator`.
+
+Recomputation (JAX ``_maybe_remat``, ``models/layers.py:634-649``): a stage
+built with ``remat`` runs each Swin block in training through
+:func:`recomputed`, which keeps the block's input and recomputes its
+activations in the backward pass; the noise of the recompute is replayed.
 """
 
 from __future__ import annotations
@@ -26,6 +31,11 @@ from typing import Iterator, Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..ops import (
     fused_head,
@@ -49,6 +59,62 @@ def noise_generator(generator: Optional[torch.Generator]) -> Iterator[None]:
         yield
     finally:
         _GENERATOR[0] = prev
+
+
+# JAX ``dots_with_no_batch_dims_saveable``: the products without batch
+# dimensions are the qkv, proj and MLP linears, which reach ATen as ``mm`` or
+# ``addmm``; the batched ``bmm`` of the composed attention and the kernels'
+# launches are recomputed, as in JAX
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def recomputed(fn, x: torch.Tensor, policy: str = "") -> torch.Tensor:
+    """``fn(x)`` under non-reentrant ``torch.utils.checkpoint``: the backward
+    pass recomputes the activations of ``fn`` from ``x``.  ``policy`` ""
+    recomputes everything, "dots" keeps the outputs of the non-batched
+    products (JAX's ``dots_with_no_batch_dims_saveable``).
+
+    Noise replay: the recompute runs in the backward pass, after the
+    forward's :func:`noise_generator` block has closed.  It draws from a
+    copy of the generator in force at the forward, set back to the state
+    that generator had when ``fn`` started, so its dropout, attention
+    dropout and stochastic-depth masks equal the forward's bit for bit,
+    while the live generator advances in the forward only, as without
+    recomputation.  Without a generator the recompute has none either, and
+    a noisy forward raises (:func:`..ops.window_attention.keep_mask`)."""
+    generator = _GENERATOR[0]
+    state = None if generator is None else generator.get_state()
+
+    def contexts():
+        forward, recompute = (create_selective_checkpoint_contexts(_save_dots)
+                              if policy == "dots"
+                              else (contextlib.nullcontext(), contextlib.nullcontext()))
+        return forward, _replaying(recompute, generator, state)
+
+    # the blocks draw no noise from the default generators: nothing to keep
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=contexts)
+
+
+@contextlib.contextmanager
+def _replaying(recompute, generator: Optional[torch.Generator],
+               state: Optional[torch.Tensor]) -> Iterator[None]:
+    """The recompute's context: ``recompute`` (the selective-checkpoint
+    one, or none) with a copy of ``generator`` at ``state`` drawing the
+    noise."""
+    replay = None
+    if generator is not None:
+        replay = torch.Generator(device=generator.device)
+        replay.set_state(state)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(recompute)
+        stack.enter_context(noise_generator(replay))
+        yield
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
@@ -293,8 +359,11 @@ class _Stage(nn.Module):
                  mlp_ratio: float, qkv_bias: bool, fused_attention: bool,
                  gelu_tanh: bool, softmax_dtype: torch.dtype, dtype: torch.dtype,
                  drop: float = 0.0, attn_drop: float = 0.0,
-                 drop_path: Sequence[float] = ()):
+                 drop_path: Sequence[float] = (), remat: bool = False,
+                 remat_policy: str = ""):
         super().__init__()
+        self.remat = remat
+        self.remat_policy = remat_policy
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size, i % 2 == 1, mlp_ratio, qkv_bias,
                       fused_attention, gelu_tanh, softmax_dtype, dtype, drop, attn_drop,
@@ -302,8 +371,12 @@ class _Stage(nn.Module):
             for i in range(depth))
 
     def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """The blocks in turn; each through :func:`recomputed` where the
+        stage recomputes and a backward pass may follow (training, grad
+        on), else called directly (eval and ``no_grad`` launch the same)."""
+        recompute = self.remat and self.training and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x)
+            x = recomputed(blk, x, self.remat_policy) if recompute else blk(x)
         return x
 
 

@@ -24,17 +24,21 @@ What differs from the JAX package on purpose:
   runs on every stage.
 * ``TPU.HOLD_WINDOW_LAYOUT`` and ``TPU.ATTN_WINDOW_GROUP`` are XLA layout
   choices that leave the numbers unchanged; they are read and ignored.
-* ``TPU.SPATIAL_AXIS``, ``TPU.MODEL_AXIS``, a recomputation policy
-  (``TPU.REMAT`` full/dots/high_res, ``TRAIN.USE_CHECKPOINT``) and a
-  device mesh are not ported yet and raise ``NotImplementedError``.
-  ``TPU.REMAT: auto`` (and ``none``) are accepted and recompute nothing:
-  every activation of the backward pass is kept.
+* ``TPU.SPATIAL_AXIS``, ``TPU.MODEL_AXIS`` and a device mesh are not
+  ported yet and raise ``NotImplementedError``.
+
+Recomputation (``TPU.REMAT``, ``TRAIN.USE_CHECKPOINT``) resolves as in the
+JAX package (:func:`resolve_remat`): ``full`` and ``dots`` (and
+``USE_CHECKPOINT``) recompute the Swin blocks of every stage, ``high_res``
+those of the stages of width <= 256, and ``auto`` is ``high_res`` at
+1024^2 and above unless the attention kernel trains, else ``none``.  The
+patch merges and expands around the blocks are never recomputed.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +62,25 @@ def _dpr(drop_path_rate: float, depths: Sequence[int]) -> List[float]:
     return [float(r) for r in np.linspace(0.0, drop_path_rate, sum(depths))]
 
 
+def resolve_remat(config, img_size: Optional[int] = None) -> Tuple[bool, bool, str]:
+    """``(use_remat, remat_high_res, remat_policy)`` from ``TPU.REMAT`` and
+    ``TRAIN.USE_CHECKPOINT`` (JAX ``models/msunet.py:501-524``).  The
+    attention kernel trains only without dropout (training dropout takes the
+    composed path), and ``auto`` keys on that: at 1024^2 and above it keeps
+    every activation when the kernel trains, else recomputes the high-
+    resolution stages.  A mode JAX does not know recomputes nothing, as there
+    (unless ``USE_CHECKPOINT``)."""
+    mode = str(config.TPU.REMAT)
+    size = img_size or config.DATA.IMG_SIZE
+    kernel_in_train = (bool(config.TPU.USE_PALLAS_ATTENTION)
+                       and float(config.MODEL.ATTN_DROP_RATE) == 0.0
+                       and float(config.MODEL.DROP_RATE) == 0.0)
+    if mode == "auto":
+        mode = "none" if size < 1024 or kernel_in_train else "high_res"
+    return (bool(config.TRAIN.USE_CHECKPOINT) or mode in ("full", "dots"),
+            mode == "high_res", "dots" if mode == "dots" else "")
+
+
 def _stage_slice(dpr: List[float], depths: Sequence[int], stage: int) -> List[float]:
     lo = sum(depths[:stage])
     return dpr[lo:lo + depths[stage]]
@@ -75,9 +98,13 @@ class MSUNetSys(nn.Module):
                  fused_head: bool = False, gelu_tanh: bool = False,
                  softmax_dtype: torch.dtype = torch.float32,
                  dtype: torch.dtype = torch.float32, drop_rate: float = 0.0,
-                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.1):
+                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.1,
+                 use_remat: bool = False, remat_high_res: bool = False,
+                 remat_policy: str = ""):
         super().__init__()
         self.img_size = img_size
+        self.use_remat = use_remat
+        self.remat_high_res = remat_high_res
         self.depths = tuple(depths)
         nl = len(depths)
         dims = [embed_dim * 2 ** i for i in range(nl)]
@@ -85,14 +112,16 @@ class MSUNetSys(nn.Module):
         common = dict(window_size=window_size, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                       fused_attention=fused_attention, fused_patch=fused_patch,
                       gelu_tanh=gelu_tanh, softmax_dtype=softmax_dtype, dtype=dtype,
-                      drop=drop_rate, attn_drop=attn_drop_rate)
+                      drop=drop_rate, attn_drop=attn_drop_rate,
+                      remat_policy=remat_policy)
         self.dtype = dtype
         self.drop_rate = float(drop_rate)
 
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim, patch_norm, dtype)
         self.layers = nn.ModuleList(
             BasicLayer(dims[i], depths[i], num_heads[i], downsample=i < nl - 1,
-                       drop_path=_stage_slice(dpr, depths, i), **common)
+                       drop_path=_stage_slice(dpr, depths, i),
+                       remat=self.stage_remat(dims[i]), **common)
             for i in range(nl))
         # concat_back_dim[i]: Linear(2*dims[nl-1-i] -> dims[nl-1-i]); [0] unused
         self.concat_back_dim = nn.ModuleList(
@@ -106,7 +135,7 @@ class MSUNetSys(nn.Module):
                 stages.append(BasicLayerUp(dims[s], depths[s], num_heads[s],
                                            upsample=i < n_stages - 1,
                                            drop_path=_stage_slice(dpr, depths, s),
-                                           **common))
+                                           remat=self.stage_remat(dims[s]), **common))
             return nn.ModuleList(stages)
 
         self.layers_up = decoder(nl - 1, nl)
@@ -117,6 +146,11 @@ class MSUNetSys(nn.Module):
         self.norm_up = LayerNorm(embed_dim, dtype)
         self.up = FinalPatchExpandX4V2(embed_dim, gelu_tanh, fused_head, dtype)
         self.output = nn.Conv2d(embed_dim, num_classes, 1, bias=False)
+
+    def stage_remat(self, dim: int) -> bool:
+        """Whether the stage of width ``dim`` recomputes its blocks (JAX
+        ``MSUNetSys._stage_remat``)."""
+        return self.use_remat or (self.remat_high_res and dim <= 256)
 
     def _reduce(self, i: int, x: torch.Tensor) -> torch.Tensor:
         return linear(x, self.concat_back_dim[i], self.dtype)
@@ -226,13 +260,10 @@ class MSUNet(nn.Module):
         for key in ("SPATIAL_AXIS", "MODEL_AXIS"):
             if str(getattr(tpu, key, "")):
                 raise NotImplementedError(f"TPU.{key} (sharding) is not ported yet")
-        if str(tpu.REMAT) not in ("auto", "none") or bool(config.TRAIN.USE_CHECKPOINT):
-            raise NotImplementedError(
-                f"recomputation policy (TPU.REMAT={tpu.REMAT}, TRAIN.USE_CHECKPOINT="
-                f"{config.TRAIN.USE_CHECKPOINT}) is not ported yet")
         if list(tpu.MESH_SHAPE) not in ([0], [1]) or int(config.HARDWARE.N_GPU) > 1:
             raise NotImplementedError("a device mesh (data parallelism) is not ported yet")
         swin = config.MODEL.SWIN
+        use_remat, remat_high_res, remat_policy = resolve_remat(config, img_size)
         model = cls(
             img_size=img_size or config.DATA.IMG_SIZE,
             patch_size=swin.PATCH_SIZE,
@@ -254,6 +285,9 @@ class MSUNet(nn.Module):
             drop_rate=float(config.MODEL.DROP_RATE),
             attn_drop_rate=float(config.MODEL.ATTN_DROP_RATE),
             drop_path_rate=float(config.MODEL.DROP_PATH_RATE),
+            use_remat=use_remat,
+            remat_high_res=remat_high_res,
+            remat_policy=remat_policy,
         )
         init_weights(model, int(config.SEED))
         return model.to(dev).eval()

@@ -8,9 +8,10 @@
 * The predict CLI over a ``data/synthetic.py`` dataset writes the same
   file names as the JAX CLI from the same ``.pth`` checkpoint.
 * With no CUDA and no ``device="cpu"`` the entry points raise.
-* Importing the port (the three CLIs, the trainer and the checkpoint
-  module among it) and running a CPU forward and a CPU train step, in a
-  fresh process, loads neither jax, flax nor the JAX package.
+* Importing the port (the four CLIs, the YAML editor, the trainer, the
+  checkpoint module, the LR range test, the plots and the tools among it)
+  and running a CPU forward and a recomputed CPU train step, in a fresh
+  process, loads neither jax, flax nor the JAX package.
 """
 
 import logging
@@ -127,13 +128,18 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 _IMPORT_CHECK = """
 import sys, numpy as np, torch
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.cli import (
-    predict_cli, test_cli, train_cli)
-from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train import checkpoint, trainer
+    predict_cli, run_cli, test_cli, train_cli)
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.core import yaml_editor
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools import (
+    epoch_bench, parity_vs_deploy)
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train import (
+    checkpoint, lr_range, trainer)
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.viz import plots
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import MSUNet
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train.state import make_predict_step
 m = MSUNet(img_size=32, embed_dim=128, depths=(1, 1, 1, 1), num_heads=(2, 2, 4, 4),
            window_size=7, fused_attention=True, fused_patch=True, fused_head=True,
-           gelu_tanh=True)
+           gelu_tanh=True, use_remat=True, remat_policy="dots")
 p = make_predict_step(m, device="cpu")(np.zeros((1, 32, 32, 3), np.uint8))
 assert p.shape == (1, 32, 32)
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.core.config import default_config
