@@ -57,7 +57,9 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    f32 params, attention, head and patch kernels, drop-path 0.1) through
    ``make_train_step`` with the launch counts zeroed just before one step
    and read just after, times ten steps on a fixed batch (the loss must
-   fall) and profiles one; then the same with ``FUSED_PATCH`` off;
+   fall; ms/step and the MFU of ``utils/flops.py``'s count against
+   ``BF16_FLOP_PER_S``) and profiles one; then the same with
+   ``FUSED_PATCH`` off;
 7. holds one float32 train step on the kernel path against the composed
    path (loss and every parameter's gradient) at 512^2, batch 2;
 8. drives the Swin-T-width MS-UNet (embed 96, depths 2/2/6/2, heads
@@ -77,8 +79,9 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    52/3/6/1); checks "Training Finished!", finite losses, the 7 CSV headers
    and a strict load of ``best_model.pth``; runs the test CLI on that
    checkpoint over the val split (its Score must equal the trainer's best
-   to 1e-6) and the predict CLI; then times the literal-config step (CUDA
-   events and the profiler's device time, peak memory) and an eval forward,
+   to 1e-6) and the predict CLI, each with its cases/s on the host clock;
+   then times the literal-config step (CUDA events, MFU, the profiler's
+   device time, peak memory) and an eval forward,
    and prints the trainer's epoch wall time, loader wait a step and
    validation time a case, each beside the card line;
 11. recomputation: drives phase 6's Swin-B train step (512^2 b8, drop-path
@@ -99,12 +102,30 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    launch counts zeroed before each arm: none in the parity arm, the
    kernels in the deploy arm) with its deltas beside r5's, then the epoch
    bench at 512^2 batch 8 over a synthetic 32 + 32 split (its JSON line);
+14. data parallelism on the one card (run before 9): (a) phase 6's step
+   through ``DistributedDataParallel`` in a one-rank NCCL group beside the
+   plain step from the same weights: launch counts equal to phase 6's,
+   losses over three steps within ``DDP_LOSS_TOL`` (and whether the bits
+   matched), ms/step, MFU and the step's device time by model section
+   (``utils/profiling.py::section_times``); (b) two ranks on the card over
+   gloo (NCCL refuses two ranks on one device; NCCL across cards is not
+   run) training Swin-B 512^2 in float32 with drop rates 0 over a global
+   batch of 8 (4 + 4) for three steps against one process over the same
+   batches (``tools/dp_check.py``): losses within ``DP_LOSS_TOL``,
+   parameters within Adam's bound of 2 x lr x steps with at most 1e-3 of
+   them beyond 1e-5; then each rank's ms/step, MFU and peak memory over
+   five bf16 deployment steps; (c) ``config.yaml`` at 256^2 with
+   ``FREEZE_ENCODER`` through the train CLI with ``HARDWARE.N_GPU: 2`` on
+   two gloo ranks on the card: each epoch's ``rank_sync`` line (the
+   trainer raises unless both ranks hold the same parameters) shows the
+   frozen stages at their initial values and each unfrozen stage moved;
 9. prints the kernels line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase prints ``chip_smoke: phase <n> <name> failed: <error>``
 on stdout, with the shape where a shape check failed, and re-raises: the
-exit is non-zero.  It imports torch, numpy, the standard library and the
+exit is non-zero (a failed rank of phase 14 raises in this process, named
+by ``torch.multiprocessing``).  It imports torch, numpy, the standard library and the
 port; without a GPU, or without the port beside it, it exits non-zero
 before printing any result.
 """
@@ -115,6 +136,7 @@ import contextlib
 import json
 import logging
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1140,9 +1162,11 @@ def run_train_step(train_args, build, rng, changes, want, label, n_timed=10) -> 
     losses = [x.item() for x in losses]
     step_ms = start.elapsed_time(end) / n_timed
     peak = torch.cuda.max_memory_allocated() / 2**30
+    mfu = step_mfu(cfg, B, step_ms, sum(p.numel() for p in model.parameters()))
     print(f"{label} train 512^2 b{B} bf16: {step_ms:.2f} ms/step (CUDA events), "
-          f"{B * n_timed / wall:.2f} img/s (host clock, synchronised), peak memory "
-          f"{peak:.2f} GiB; loss {losses[0]:.5f} -> {losses[-1]:.5f} over {n_timed} steps")
+          f"{B * n_timed / wall:.2f} img/s (host clock, synchronised), MFU {mfu:.4f}, peak "
+          f"memory {peak:.2f} GiB; loss {losses[0]:.5f} -> {losses[-1]:.5f} over {n_timed} "
+          f"steps")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{label} train losses not finite and falling: {losses}")
     dev_ms = profile_forward(lambda imgs: step(state, imgs, labels, 1e-4), images,
@@ -1378,11 +1402,16 @@ def training_run(build, card: str) -> None:
 
         # -- the test CLI on that checkpoint over the val split --
         build.reset_launches()
+        t0 = time.perf_counter()
         (dice, score, fpr), _ = run_captured(test_cli.main, [
             "--cfg", cfg_path, "--check_point_dir", out, "--out_dir",
             os.path.join(run_dir, "test"), "--split", "val"])
+        test_wall = time.perf_counter() - t0
         launches = dict(build.LAUNCHES)
         n_val = CLI_SPLIT["n_val_fake"] + CLI_SPLIT["n_val_real"]
+        print(f"test CLI on best_model.pth over {n_val} val cases 1024^2: {test_wall:.2f} s "
+              f"in all, {n_val / test_wall:.3f} cases/s (host clock: model build, checkpoint "
+              f"load, decode, forward, metrics, the PNG exports); {card}")
         want = expect(build, **{k: n_val * v for k, v in CLI_FORWARD.items()})
         print(f"test CLI: Score {score!r} vs the trainer's best {scores[best]!r} "
               f"(|diff| {abs(score - scores[best]):.3e}, tol {SCORE_TOL:g}); launches "
@@ -1393,9 +1422,13 @@ def training_run(build, card: str) -> None:
 
         # -- the predict CLI on the same directory --
         pred_dir = os.path.join(run_dir, "predict")
+        t0 = time.perf_counter()
         preds, _ = run_captured(predict_cli.main, [
             "--cfg", cfg_path, "--check_point_dir", out, "--out_dir", pred_dir,
             "--split", "val"])
+        pred_wall = time.perf_counter() - t0
+        print(f"predict CLI over {n_val} val cases 1024^2: {pred_wall:.2f} s in all, "
+              f"{n_val / pred_wall:.3f} cases/s (host clock); {card}")
         pngs = [n for n in os.listdir(pred_dir) if n.endswith(".png")]
         if len(preds) != n_val or len(pngs) != 4 * n_val:
             raise AssertionError(f"predict CLI: {len(preds)} cases, {len(pngs)} files")
@@ -1432,8 +1465,9 @@ def training_run(build, card: str) -> None:
             raise AssertionError(f"literal-config step losses {step_losses}")
         rows = kernel_times(lambda: step(state, images, labels, lr))
         dev_ms = sum(r[0] for r in rows)
+        mfu = step_mfu(cfg, 2, step_ms, sum(p.numel() for p in model.parameters()))
         print(f"literal-config train step 1024^2 b2 bf16, high_res: {step_ms:.2f} ms/step "
-              f"(CUDA events, {CLI_TIMED_STEPS} steps), device time {dev_ms:.2f} ms "
+              f"(CUDA events, {CLI_TIMED_STEPS} steps), MFU {mfu:.4f}, device time {dev_ms:.2f} ms "
               f"(profiler, one step; busy {dev_ms / step_ms:.3f}), peak memory {peak:.2f} "
               f"GiB (recomputing nothing it read 309-489 ms and 22.83-22.88 GiB, PERF.md); "
               f"launches {CLI_STEP}; {card}")
@@ -1735,6 +1769,242 @@ def parity_and_epoch_bench(build, card: str) -> None:
         shutil.rmtree(run_dir, ignore_errors=True)
 
 
+# phase 14: data parallelism on the one card.  (a) a one-rank NCCL group
+# around phase 6's step; (b) two ranks on the card over gloo (NCCL refuses
+# two ranks on one device) against one process over the same global
+# batches, then each rank's deployment step timed; (c) the staged
+# FREEZE_ENCODER unfreeze through the train CLI on two ranks
+DP_STEPS = 3            # (b) float32 steps held against one process
+DP_TIMED = 5            # (b) bf16 deployment steps timed on each rank
+DP_LR = 1e-4
+DP_LOSS_TOL = 1e-5      # tests/test_parallel.py::test_dp_matches_single_device
+DDP_LOSS_TOL = 1e-6     # (a) one rank: the DDP step is the plain step
+UNFREEZE_IMG, UNFREEZE_EPOCHS = 256, 3
+UNFREEZE_SPLIT = dict(n_fake_train=4, n_real_train=2, n_val_fake=1, n_val_real=1,
+                      n_test_fake=0, n_test_real=0)
+
+
+def step_mfu(cfg, batch: int, ms: float, n_params: int) -> float:
+    """``utils/flops.py``'s count of one train step over its time, against
+    the card's bf16 peak."""
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.utils.flops import (
+        train_step_flops,
+    )
+
+    swin = cfg.MODEL.SWIN
+    flop = train_step_flops(int(cfg.DATA.IMG_SIZE), batch, patch_size=int(swin.PATCH_SIZE),
+                            embed_dim=int(swin.EMBED_DIM), depths=tuple(swin.DEPTHS),
+                            window_size=int(swin.WINDOW_SIZE),
+                            num_classes=int(cfg.MODEL.NUM_CLASSES), params=n_params)
+    return flop / (ms / 1e3) / BF16_FLOP_PER_S
+
+
+def write_config(cfg, path: str) -> str:
+    with open(path, "w") as f:
+        f.write(cfg.dump_yaml())
+    return path
+
+
+def one_rank_nccl(train_args, build, rng, run_dir: str, card: str, want: dict) -> None:
+    """(a): phase 6's step (Swin-B 512^2 b8 bf16, every knob on) through
+    DDP in a one-rank NCCL group beside the plain step from the same
+    weights: equal launch counts and losses; ms/step, MFU and the step's
+    device time by model section."""
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.parallel import mesh
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.utils.profiling import (
+        section_times,
+    )
+
+    default_config, MSUNet, create_train_state, make_train_step = train_args
+    cfg = deployment_config(default_config, **TRAIN_CHANGES)
+    images, labels = train_batch(rng, B)
+    dev = mesh.init_process_group(0, 1, "file://" + os.path.join(run_dir, "nccl"), "cuda")
+    try:
+        print(f"one-rank process group: backend {torch.distributed.get_backend()}, "
+              f"device {dev}")
+        losses = {}
+        for name in ("plain", "ddp"):
+            model = MSUNet.from_config(cfg)
+            state = create_train_state(model, cfg)
+            if name == "ddp":
+                mesh.replicate_state(state)
+            step = make_train_step(model, 0.2, 0.8, 0.45)
+            losses[name] = [step(state, images, labels, 1e-4).item()]
+            torch.cuda.synchronize()
+            build.reset_launches()
+            losses[name].append(step(state, images, labels, 1e-4).item())
+            torch.cuda.synchronize()
+            launches = dict(build.LAUNCHES)
+            if launches != want:
+                raise AssertionError(f"{name} step launches {launches} != phase 6's {want}")
+            losses[name].append(step(state, images, labels, 1e-4).item())
+            if name == "plain":
+                del state, step, model
+                torch.cuda.empty_cache()
+        diff = max(abs(a - b) for a, b in zip(losses["plain"], losses["ddp"]))
+        print(f"DDP step (one NCCL rank) launches {launches} = phase 6's; losses over 3 "
+              f"steps {losses['ddp']} vs plain {losses['plain']}: max |diff| {diff:.3e} "
+              f"(tol {DDP_LOSS_TOL:g}; bits {'equal' if diff == 0 else 'differ'})")
+        if not diff <= DDP_LOSS_TOL:
+            raise AssertionError(f"one-rank DDP losses differ from the plain step by {diff}")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(state, images, labels, 1e-4), 10, warmup=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"DDP step Swin-B 512^2 b{B} bf16, one NCCL rank: {ms:.2f} ms/step (CUDA "
+              f"events, 10 steps), MFU {step_mfu(cfg, B, ms, n_params):.4f} of "
+              f"{BF16_FLOP_PER_S / 1e12:g} TFLOP/s bf16, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+        sections = section_times(lambda: step(state, images, labels, 1e-4), model)
+        top = sorted(((v, k) for k, v in sections.items() if k != "total"), reverse=True)
+        print(f"DDP step device time by section (profiler, one step): "
+              f"{sections['total']:.2f} ms; " +
+              ", ".join(f"{k} {v:.2f}" for v, k in top[:8]))
+    finally:
+        mesh.destroy_process_group()
+
+
+def two_ranks_gloo(train_args, rng, run_dir: str, card: str) -> None:
+    """(b): two gloo ranks on the card against one process over the same
+    global batches (Swin-B 512^2 float32, drop rates 0), then each rank's
+    deployment step timed."""
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools import dp_check
+
+    default_config = train_args[0]
+    f32 = deployment_config(default_config, **{
+        **TRAIN_CHANGES, "MODEL.DROP_PATH_RATE": 0.0, "TPU.COMPUTE_DTYPE": "float32",
+        "TPU.SOFTMAX_DTYPE": "float32"})
+    bf16 = deployment_config(default_config, **TRAIN_CHANGES)
+    batches = [train_batch(rng, B) for _ in range(DP_STEPS)]
+    spec = dp_check.make_spec(write_config(f32, os.path.join(run_dir, "f32.yaml")), batches,
+                              DP_LR, device="cuda:0", backend="gloo", threads=4,
+                              timed={"cfg_path": write_config(
+                                  bf16, os.path.join(run_dir, "bf16.yaml")),
+                                     "batch": B, "steps": DP_TIMED})
+    t0 = time.perf_counter()
+    one = dp_check.run_steps(spec, device="cuda")
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    print("two ranks on one card over gloo with CUDA tensors: NCCL refuses two ranks on "
+          "one device; NCCL across two cards is not run (one card)")
+    ranks = dp_check.spawn_steps(spec, 2, os.path.join(run_dir, "ranks"))
+    t2 = time.perf_counter()
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError(f"ranks report other losses: {[r['losses'] for r in ranks]}")
+    dl = max(abs(a - b) for a, b in zip(ranks[0]["losses"], one["losses"]))
+    worst, worst_name, n_far, n_all = 0.0, "", 0, 0
+    for k, want in one["state_dict"].items():
+        d = (ranks[0]["state_dict"][k] - want).abs()
+        if d.max().item() > worst:
+            worst, worst_name = d.max().item(), k
+        n_far += int((d > 1e-5).sum())
+        n_all += d.numel()
+    bound = 2 * DP_LR * DP_STEPS
+    print(f"Swin-B 512^2 f32, global batch {B} ({B // 2} + {B // 2}), {DP_STEPS} steps at lr "
+          f"{DP_LR:g}: losses {ranks[0]['losses']} vs one process {one['losses']}, max "
+          f"|diff| {dl:.3e} (tol {DP_LOSS_TOL:g}); parameters max |diff| {worst:.3e} "
+          f"({worst_name}; bound 2 x lr x steps = {bound:g}: Adam moves a parameter by about "
+          f"lr a step whatever its gradient's size, so round-off can flip one near-zero "
+          f"gradient's step), {n_far} of {n_all} elements beyond 1e-5 (tol 1e-3 of them); "
+          f"one process {t1 - t0:.1f} s, two ranks {t2 - t1:.1f} s with their start")
+    if not dl <= DP_LOSS_TOL or not worst <= bound or not n_far <= 1e-3 * n_all:
+        raise AssertionError("two gloo ranks differ from one process")
+    n_params = sum(v.numel() for v in one["state_dict"].values())
+    for r in ranks:
+        print(f"rank {r['rank']}: {DP_TIMED} bf16 deployment steps 512^2 b{B} a rank (DDP, "
+              f"gloo, two ranks sharing the card): {r['ms']:.2f} ms/step (CUDA events), "
+              f"{r['host_ms']:.2f} ms (host), MFU {step_mfu(bf16, B, r['ms'], n_params):.4f}, "
+              f"peak {r['peak_gib']:.2f} GiB; {card}")
+
+
+def unfreeze_config(run_dir: str, data: str) -> str:
+    """config.yaml at 256^2 on two ranks with the encoder frozen: stage 3
+    unfreezes at epoch 1, stage 2 at epoch 2, stages 1 and 0 not within
+    the run."""
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config.yaml")
+    path = os.path.join(run_dir, "unfreeze.yaml")
+    with open(path, "w") as f:
+        f.write(f"BASE: ['{base}']\n"
+                f"DATA:\n  DATA_PATH: '{data}'\n  IMG_SIZE: {UNFREEZE_IMG}\n"
+                f"HARDWARE:\n  N_GPU: 2\n"
+                f"MODEL:\n  PRETRAIN_WEIGHTS: none\n  FREEZE_ENCODER: true\n"
+                f"  STAGE3_UNFREEZE_PERIODE: 0.34\n  STAGE2_UNFREEZE_PERIODE: 0.67\n"
+                f"  STAGE1_UNFREEZE_PERIODE: 1.0\n  STAGE0_UNFREEZE_PERIODE: 1.0\n"
+                f"TRAIN:\n  MAX_EPOCHS: {UNFREEZE_EPOCHS}\n  WARMUP_EPOCHS: 1\n"
+                f"OUTPUT_DIR: '{os.path.join(run_dir, 'unfreeze')}'\n"
+                f"LIST_DIR: '{os.path.join(data, 'lists')}'\n")
+    return path
+
+
+def staged_unfreeze(run_dir: str, card: str) -> None:
+    """(c): the train CLI with ``HARDWARE.N_GPU: 2`` spawns two gloo ranks
+    on the card; its per-epoch ``rank_sync`` lines (the trainer raises
+    unless both ranks hold the same parameters) must show each stage equal
+    to its initial values while frozen and moved once unfrozen."""
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.cli import train_cli
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.core.config import load_config
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.data.synthetic import (
+        generate_synthetic_dataset,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import MSUNet
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.parallel.mesh import (
+        stage_sums,
+    )
+
+    data = os.path.join(run_dir, "data")
+    generate_synthetic_dataset(data, img_size=UNFREEZE_IMG, seed=0, **UNFREEZE_SPLIT)
+    path = unfreeze_config(run_dir, data)
+    cfg = load_config(path)
+    init = stage_sums(MSUNet.from_config(cfg))
+    t0 = time.perf_counter()
+    run_captured(train_cli.main, ["--cfg", path, "--device", "cuda:0", "--dist_backend",
+                                  "gloo"])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(cfg.OUTPUT_DIR, "log.txt")) as f:
+        syncs = [json.loads(ln.split("rank_sync ", 1)[1]) for ln in f if "rank_sync " in ln]
+    print(f"train CLI, N_GPU 2 on one card (gloo), {UNFREEZE_IMG}^2, FREEZE_ENCODER, "
+          f"{UNFREEZE_EPOCHS} epochs in {wall:.1f} s with the ranks' start; {card}")
+    want_frozen = [[0, 1, 2, 3], [0, 1, 2], [0, 1]]
+    if [s["frozen_stages"] for s in syncs] != want_frozen or \
+            any(s["world"] != 2 for s in syncs):
+        raise AssertionError(f"rank_sync lines {syncs}")
+    for s in syncs:
+        moved = sorted(k for k, v in s["stage_sums"].items()
+                       if abs(v - init[k]) > 1e-6 * max(1.0, abs(init[k])))
+        trained = [f"layers.{i}" for i in range(4) if i not in s["frozen_stages"]]
+        print(f"  epoch {s['epoch']}: frozen {s['frozen_stages']}, both ranks' parameters "
+              f"equal, stages moved since init {moved}")
+        if moved != trained:
+            raise AssertionError(f"epoch {s['epoch']}: stages moved {moved}, trainable "
+                                 f"{trained}")
+    with open(os.path.join(cfg.OUTPUT_DIR, "log.txt")) as f:
+        if "Training finished" not in f.read():
+            raise AssertionError("the two-rank run did not finish")
+    if not os.path.exists(os.path.join(cfg.OUTPUT_DIR, "best_model.pth")):
+        raise AssertionError("the two-rank run wrote no best checkpoint")
+
+
+def data_parallel(train_args, build, rng, card: str, want: dict) -> None:
+    """Phase 14: (a), (b) and (c) above."""
+    import shutil
+
+    run_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "model_out",
+                           "chip_smoke_phase14")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    try:
+        t0 = time.perf_counter()
+        one_rank_nccl(train_args, build, rng, run_dir, card, want)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        two_ranks_gloo(train_args, rng, run_dir, card)
+        t2 = time.perf_counter()
+        staged_unfreeze(run_dir, card)
+        print(f"phase 14 parts: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+              f"{time.perf_counter() - t2:.1f} s")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
 @contextlib.contextmanager
 def phase(n: int, name: str):
     """Run one phase of the smoke; on any error say which on stdout and
@@ -1890,6 +2160,7 @@ def main() -> int:
                 refine_head_bwd=1), "Swin-B")
         for r in (attn_bwd, res, bwd, merge_bwd, expand_bwd):
             r.row["launches"] = launches[r.row["name"]]
+        phase6_launches = launches
         torch.cuda.empty_cache()
         run_train_step(train_args, _build, rng, {"TPU.FUSED_PATCH": False}, expect(
             _build, window_attention=52, window_attention_bwd=48, refine_head_res=1,
@@ -1936,6 +2207,10 @@ def main() -> int:
 
     with phase(13, "parity and epoch bench"):
         parity_and_epoch_bench(_build, card)
+        torch.cuda.empty_cache()
+
+    with phase(14, "data parallel"):
+        data_parallel(train_args, _build, rng, card, phase6_launches)
         torch.cuda.empty_cache()
 
     with phase(9, "report"):

@@ -4,8 +4,10 @@
         --cfg config.yaml --check_point_dir <dir or file> --out_dir <dir> [--device cuda]
 
 Counterpart of the JAX package's ``cli/test_cli.py`` (reference
-``test.py:36-224``): loads the best checkpoint (``best_model.pth`` or a
-JAX ``best_model.msgpack``, or the file itself), runs the metric pass over
+``test.py:36-224``): copies ``--cfg`` to ``config_used.yaml`` in
+``--out_dir``, loads the best checkpoint (in a directory, as the JAX test
+CLI: a JAX ``best_model.msgpack`` first, then ``best_model.pth``; or the
+file itself), runs the metric pass over
 the split with ``TEST.SIG_THRESHOLD`` (the 7 CSVs and ``log.txt`` in
 ``--out_dir``), and exports per-case PNGs under ``predictions/`` with the
 reference's test-side binary threshold 0.4 (``test.py:206``), the image
@@ -18,6 +20,7 @@ from __future__ import annotations
 import argparse
 import os
 import random
+import shutil
 
 import numpy as np
 import torch
@@ -39,7 +42,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    from ..core.config import get_config, save_config
+    from ..core.config import get_config
     from ..data.dataset import SegArtifactDataset
     from ..data.pipeline import EvalLoader
     from ..metrics.csv_logger import CSVHandler
@@ -51,7 +54,7 @@ def main(argv=None):
         to_case_metrics,
     )
     from ..models.msunet import MSUNet
-    from ..train.checkpoint import load_best_state_dict
+    from ..train.checkpoint import TEST_ORDER, load_best_state_dict
     from ..train.inference import tiled_predict
     from ..train.state import make_eval_step, make_predict_step
     from ..train.trainer import validate
@@ -63,7 +66,7 @@ def main(argv=None):
     num_classes = int(config.MODEL.NUM_CLASSES)
     threshold = float(config.TEST.SIG_THRESHOLD)
     os.makedirs(args.out_dir, exist_ok=True)
-    save_config(config, os.path.join(args.out_dir, "config_used.yaml"))
+    shutil.copy(args.cfg, os.path.join(args.out_dir, "config_used.yaml"))
     log = file_logger("test", args.out_dir)
     try:
         seed = int(config.SEED)
@@ -74,8 +77,8 @@ def main(argv=None):
         img_size = config.DATA.IMG_SIZE
         model = MSUNet.from_config(config, img_size=args.tile or img_size,
                                    device=args.device)
-        model.ms_unet.load_state_dict(load_best_state_dict(args.check_point_dir),
-                                      strict=True)
+        model.ms_unet.load_state_dict(
+            load_best_state_dict(args.check_point_dir, TEST_ORDER), strict=True)
         loader = EvalLoader(SegArtifactDataset(config.DATA.DATA_PATH, config.LIST_DIR,
                                                args.split),
                             img_size=img_size, num_classes=num_classes)

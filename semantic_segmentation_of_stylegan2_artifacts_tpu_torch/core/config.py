@@ -159,7 +159,7 @@ def default_config() -> CfgNode:
     c.DATA.NUM_WORKERS = 8
 
     c.HARDWARE = CfgNode()
-    c.HARDWARE.N_GPU = 1  # reference knob name: number of devices (more than 1 raises)
+    c.HARDWARE.N_GPU = 1  # reference knob name: data-parallel ranks (parallel/mesh.py)
 
     c.MODEL = CfgNode()
     c.MODEL.TYPE = "swin"
@@ -241,8 +241,9 @@ def default_config() -> CfgNode:
     # knobs (USE_PALLAS_ATTENTION, FUSED_HEAD, FUSED_PATCH) select the CUDA
     # kernels, off meaning the composed PyTorch path; GELU_TANH picks the
     # GELU form; ATTN_WINDOW_GROUP and HOLD_WINDOW_LAYOUT are XLA layout
-    # choices, read and ignored; MESH_SHAPE, SPATIAL_AXIS and MODEL_AXIS
-    # raise (not ported yet); REMAT recomputes Swin blocks in training
+    # choices, read and ignored; MESH_SHAPE's first (data) axis is read and
+    # ignored (HARDWARE.N_GPU sizes it, as in JAX), a model or space axis
+    # above 1, SPATIAL_AXIS and MODEL_AXIS raise (not ported yet); REMAT recomputes Swin blocks in training
     # (models/msunet.py::resolve_remat); the trainer reads
     # PREFETCH_DEPTH (batches decoded ahead), DEVICE_PREFETCH (batches copied
     # to the card ahead), EVAL_BATCH, and CKPT_BACKEND / CKPT_ASYNC

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import random
-from typing import Callable, Dict, Iterator, List
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -121,13 +121,27 @@ class TrainLoader:
         """Batches ``{'image': (B,H,W,3) u8, 'label': (B,H,W) u8, 'case_name'}``."""
         yield from self.epoch_batches_merged(epoch, 1)
 
-    def epoch_batches_merged(self, epoch: int, merge: int) -> Iterator[Dict]:
-        """``merge`` sampler pairs concatenated into one batch (each pair
-        keeps its at-least-one-fake guarantee); trailing pairs that do not
-        fill a batch are dropped."""
-        pairs, fetch = self._epoch_plan(epoch)
+    def epoch_batches_merged(self, epoch: int, merge: int,
+                             shard: Optional[Tuple[int, int]] = None) -> Iterator[Dict]:
+        """``merge`` sampler pairs concatenated into one global batch (each
+        pair keeps its at-least-one-fake guarantee); trailing pairs that do
+        not fill a batch are dropped.
+
+        ``shard=(rank, world)`` decodes only this rank's rows: ``merge`` is
+        the global pair count a step, and the rank takes the contiguous
+        ``merge // world`` pairs at offset ``rank * (merge // world)`` of
+        each group.  The plan depends on ``(seed, epoch)`` alone, so every
+        rank derives the same global batches."""
+        pi, pc = (0, 1) if shard is None else (int(shard[0]), int(shard[1]))
+        if pc < 1 or not 0 <= pi < pc:
+            raise ValueError(f"bad shard {shard}")
         merge = max(1, merge)
-        groups = [[i for pair in pairs[g * merge:(g + 1) * merge] for i in pair]
+        if merge % pc != 0:
+            raise ValueError(f"global merge {merge} not divisible by process_count {pc}")
+        local = merge // pc
+        pairs, fetch = self._epoch_plan(epoch)
+        groups = [[i for pair in pairs[g * merge + pi * local:g * merge + (pi + 1) * local]
+                   for i in pair]
                   for g in range(len(pairs) // merge)]
         yield from _prefetched(groups, lambda g: _stack_batch([fetch(i) for i in g]),
                                self.num_workers, self.prefetch_depth)

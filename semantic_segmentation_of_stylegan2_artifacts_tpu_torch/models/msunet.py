@@ -24,8 +24,10 @@ What differs from the JAX package on purpose:
   runs on every stage.
 * ``TPU.HOLD_WINDOW_LAYOUT`` and ``TPU.ATTN_WINDOW_GROUP`` are XLA layout
   choices that leave the numbers unchanged; they are read and ignored.
-* ``TPU.SPATIAL_AXIS``, ``TPU.MODEL_AXIS`` and a device mesh are not
-  ported yet and raise ``NotImplementedError``.
+* ``TPU.SPATIAL_AXIS``, ``TPU.MODEL_AXIS`` and a ``TPU.MESH_SHAPE`` with a
+  model or space axis (tensor and spatial parallelism) are not ported yet
+  and raise ``NotImplementedError``; ``HARDWARE.N_GPU`` data parallelism
+  is the trainer's (``parallel/mesh.py``).
 
 Recomputation (``TPU.REMAT``, ``TRAIN.USE_CHECKPOINT``) resolves as in the
 JAX package (:func:`resolve_remat`): ``full`` and ``dots`` (and
@@ -45,6 +47,7 @@ import torch
 import torch.nn as nn
 
 from ..core.device import compute_dtype, resolve_device
+from ..parallel.mesh import world_size_for
 from .layers import (
     BasicLayer,
     BasicLayerUp,
@@ -257,11 +260,7 @@ class MSUNet(nn.Module):
         ``MODEL.NUM_CLASSES``."""
         dev = resolve_device(device)
         tpu = config.TPU
-        for key in ("SPATIAL_AXIS", "MODEL_AXIS"):
-            if str(getattr(tpu, key, "")):
-                raise NotImplementedError(f"TPU.{key} (sharding) is not ported yet")
-        if list(tpu.MESH_SHAPE) not in ([0], [1]) or int(config.HARDWARE.N_GPU) > 1:
-            raise NotImplementedError("a device mesh (data parallelism) is not ported yet")
+        world_size_for(config)  # a model or space axis raises: not ported yet
         swin = config.MODEL.SWIN
         use_remat, remat_high_res, remat_policy = resolve_remat(config, img_size)
         model = cls(

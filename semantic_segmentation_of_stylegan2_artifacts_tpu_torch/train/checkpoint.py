@@ -163,15 +163,25 @@ class CheckpointWriter:
                 self._queue.task_done()
 
 
-def resolve_checkpoint(path: str) -> str:
-    """A best checkpoint file: ``path`` itself, or in a directory
-    ``best_model.pth`` (the port's), else ``best_model.msgpack`` (the JAX
-    package's).  An orbax checkpoint raises ``NotImplementedError``."""
+# the order in which each CLI looks for a best checkpoint in a directory,
+# as the JAX package's CLIs do: the predict CLI the port's ``.pth`` first
+# (JAX ``cli/predict_cli.py``), the test CLI the JAX ``.msgpack`` first (JAX
+# ``cli/test_cli.py::_resolve_checkpoint``)
+PREDICT_ORDER = ("best_model.pth", "best_model.msgpack", "best_model.orbax")
+TEST_ORDER = ("best_model.msgpack", "best_model.pth", "best_model.orbax")
+
+
+def resolve_checkpoint(path: str, order=PREDICT_ORDER) -> str:
+    """A best checkpoint file: ``path`` itself, or the first name of
+    ``order`` that exists in the directory ``path``.  An orbax checkpoint
+    raises ``NotImplementedError``."""
     if not os.path.isdir(path):
         return path
-    for name in ("best_model.pth", "best_model.msgpack"):
+    for name in order:
         cand = os.path.join(path, name)
         if os.path.exists(cand):
+            if name.endswith(".orbax"):
+                break
             return cand
     if path.rstrip("/").endswith(".orbax") or os.path.exists(
             os.path.join(path, "best_model.orbax")):
@@ -180,11 +190,11 @@ def resolve_checkpoint(path: str) -> str:
     raise FileNotFoundError(f"No best_model checkpoint in {path}")
 
 
-def load_best_state_dict(path: str) -> Dict[str, torch.Tensor]:
+def load_best_state_dict(path: str, order=PREDICT_ORDER) -> Dict[str, torch.Tensor]:
     """The ``MSUNetSys`` state dict of a best checkpoint (file or directory,
     see :func:`resolve_checkpoint`): a reference-layout ``.pth``/``.pt`` or
     a JAX ``.msgpack``."""
-    path = resolve_checkpoint(path)
+    path = resolve_checkpoint(path, order)
     if path.endswith(".msgpack"):
         return load_jax_best(path)["model"]
     if path.endswith((".pth", ".pt")):

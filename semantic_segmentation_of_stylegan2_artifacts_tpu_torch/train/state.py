@@ -8,15 +8,23 @@ in float32, the backward and one AdamW update with the learning rate
 passed per call.  Dropout and stochastic-depth noise come from the state's
 ``torch.Generator``, re-seeded from (seed, step, micro-batch) before each
 forward, so a step is reproducible.
+
+Under data parallelism (``parallel/mesh.py::replicate_state``) the
+forward and backward run through the state's ``DistributedDataParallel``
+wrapper, which all-reduces the gradients: every micro-batch but the last
+under ``no_sync()``.  The rank folds into the noise seeds (rank 0 keeps the
+one-process seeds), and the returned loss is the mean over the ranks.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.device import resolve_device
 from ..losses import dynamic_loss
@@ -32,13 +40,18 @@ from .optim import build_optimizer, set_learning_rate
 @dataclass
 class TrainState:
     """What a train step updates: the model's parameters (in place),
-    the optimizer's moments, the step count; and the noise generator."""
+    the optimizer's moments, the step count; and the noise generator.
+    ``replica`` is the model's DDP wrapper under data parallelism, and
+    ``rank`` / ``world`` this rank's place."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
     seed: int
     step: int = 0
+    replica: Optional[torch.nn.Module] = None
+    rank: int = 0
+    world: int = 1
 
 
 def create_train_state(model: torch.nn.Module, config, device=None) -> TrainState:
@@ -51,8 +64,11 @@ def create_train_state(model: torch.nn.Module, config, device=None) -> TrainStat
                       generator=torch.Generator(device=dev), seed=int(config.SEED))
 
 
-def _noise_seed(seed: int, step: int, micro: int) -> int:
-    return int(np.random.SeedSequence([seed, step, micro]).generate_state(1)[0])
+def _noise_seed(seed: int, step: int, micro: int, rank: int = 0) -> int:
+    """The noise seed of a micro-batch; ranks other than 0 add their rank,
+    so the ranks draw independent masks for their different rows."""
+    entropy = [seed, step, micro] + ([rank] if rank else [])
+    return int(np.random.SeedSequence(entropy).generate_state(1)[0])
 
 
 def normalize_images(images_u8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -107,13 +123,19 @@ def make_train_step(model: torch.nn.Module, loss_alpha: float, loss_beta: float,
         set_learning_rate(state.optimizer, lr)
         state.optimizer.zero_grad(set_to_none=True)
         loss = torch.zeros((), dtype=torch.float32, device=dev)
+        net = model if state.replica is None else state.replica
         for i in range(acc):
-            state.generator.manual_seed(_noise_seed(state.seed, state.step, i))
-            with noise_generator(state.generator):
-                logits = model(images[i * mb:(i + 1) * mb])
-            loss_i = loss_impl(logits, labels[i * mb:(i + 1) * mb], loss_alpha,
-                               loss_beta, loss_mix)
-            (loss_i / acc).backward()
+            # DDP all-reduces in the backward of the last micro-batch only
+            sync = (state.replica.no_sync() if state.replica is not None and i < acc - 1
+                    else contextlib.nullcontext())
+            with sync:
+                state.generator.manual_seed(
+                    _noise_seed(state.seed, state.step, i, state.rank))
+                with noise_generator(state.generator):
+                    logits = net(images[i * mb:(i + 1) * mb])
+                loss_i = loss_impl(logits, labels[i * mb:(i + 1) * mb], loss_alpha,
+                                   loss_beta, loss_mix)
+                (loss_i / acc).backward()
             loss = loss + loss_i.detach()
         # trainable parameters the loss does not reach (the last stage of
         # each cent decoder, whose output the reference drops) get zero
@@ -124,6 +146,9 @@ def make_train_step(model: torch.nn.Module, loss_alpha: float, loss_beta: float,
                 p.grad = torch.zeros_like(p)
         state.optimizer.step()
         state.step += 1
+        if state.world > 1:
+            dist.all_reduce(loss)
+            loss = loss / state.world
         return loss / acc
 
     return step

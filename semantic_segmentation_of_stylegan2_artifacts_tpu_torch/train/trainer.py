@@ -19,6 +19,17 @@ of the trainer: there is no fallback to the composed path.
 Each epoch logs one ``epoch_timing {json}`` line: the epoch's host seconds,
 the host seconds the steps waited for the train loader, the steps, and the
 validation's seconds and cases.
+
+Data parallelism (JAX ``train/trainer.py``'s mesh): ``HARDWARE.N_GPU``
+sampler pairs make one global batch a step.  When a process group is up
+(``parallel/mesh.py``, started by the train CLI) each rank decodes its
+share of every global batch, trains through a ``DistributedDataParallel``
+wrapper (rebuilt at every staged unfreeze, since DDP fixes its parameter
+set when built), and checks after each epoch that every rank holds the same
+parameters; rank 0 alone validates, broadcasts the Score that every rank's
+best-checkpoint, early-stop and unfreeze decisions read, and writes the
+logs, CSVs, checkpoints and predictions.  With no group, one process
+trains the whole global batch.
 """
 
 from __future__ import annotations
@@ -36,6 +47,13 @@ import torch
 from ..data.dataset import SegArtifactDataset
 from ..data.pipeline import EvalLoader, TrainLoader
 from ..metrics.csv_logger import CSVHandler
+from ..parallel.mesh import (
+    broadcast_float,
+    check_replicas,
+    replicate_state,
+    stage_sums,
+)
+from ..parallel.multihost import host_shard, local_merge
 from ..metrics.segmentation import (
     MetricsAggregator,
     case_metrics,
@@ -174,7 +192,9 @@ def trainer(model, logger, writer, log_save_path: str = "", config=None,
     here on ``device``, the card unless the caller passes another, when
     None); with ``MODEL.FREEZE_ENCODER`` a state built here starts with the
     encoder frozen, and a state passed in must be so already.
-    ``resume_from`` is an ``epoch_N.pth`` of :class:`CheckpointWriter`."""
+    ``resume_from`` is an ``epoch_N.pth`` of :class:`CheckpointWriter`.
+    Under a process group ``model`` is this rank's replica, already on its
+    device."""
     if config is None:
         raise ValueError("Config file is not found!")
     if logger is None:
@@ -183,10 +203,17 @@ def trainer(model, logger, writer, log_save_path: str = "", config=None,
     freeze_encoder = bool(config.MODEL.FREEZE_ENCODER)
     img_size = int(config.DATA.IMG_SIZE)
     num_classes = int(config.MODEL.NUM_CLASSES)
+    # N_GPU sampler pairs a global batch (JAX trainer.py's merge = n_dp); each
+    # rank of a process group decodes its share
+    merge = max(1, int(config.HARDWARE.N_GPU))
+    rank, world = host_shard()
+    local_merge(merge)
+    distributed = torch.distributed.is_available() and torch.distributed.is_initialized()
+    is_main = rank == 0
 
-    os.makedirs(log_save_path, exist_ok=True)
     pred_dir = os.path.join(log_save_path, "final_preds")
-    os.makedirs(pred_dir, exist_ok=True)
+    if is_main:
+        os.makedirs(pred_dir, exist_ok=True)
 
     # ---- data ------------------------------------------------------------
     data, lists = config.DATA.DATA_PATH, config.LIST_DIR
@@ -214,6 +241,8 @@ def trainer(model, logger, writer, log_save_path: str = "", config=None,
         nonlocal frozen_stages
         frozen_stages = frozen_stages - {stage}
         unfreeze(state.optimizer, config, model, frozen_stages)
+        if state.replica is not None:
+            replicate_state(state)  # DDP reduces only what was trainable when built
 
     start_epoch = int(config.TRAIN.START_EPOCH)
     if resume_from:
@@ -242,6 +271,10 @@ def trainer(model, logger, writer, log_save_path: str = "", config=None,
         # the noise seed folds the step in: resumed noise continues the sequence
         state.step = int(raw.get("iter_num", 0))
         logger.info(f"Resumed from {resume_from} at epoch {start_epoch}")
+    if distributed:
+        replicate_state(state)
+        logger.info(f"data parallel: {world} ranks, {merge} sampler pairs a global "
+                    f"batch, {2 * merge // world} rows a rank")
 
     alpha = float(config.TRAIN.TVERSKY_LOSS_ALPHA)
     beta = float(config.TRAIN.TVERSKY_LOSS_BETA)
@@ -275,8 +308,8 @@ def trainer(model, logger, writer, log_save_path: str = "", config=None,
     save_best_output: List[Tuple[str, np.ndarray]] = []
     train_loss_list: List[float] = []
     ckpt_writer = CheckpointWriter(backend=str(config.TPU.CKPT_BACKEND),
-                                   async_=bool(config.TPU.CKPT_ASYNC))
-    csv_handler = CSVHandler(log_save_path)
+                                   async_=bool(config.TPU.CKPT_ASYNC) and is_main)
+    csv_handler = CSVHandler(log_save_path) if is_main else None
     device_prefetch = int(config.TPU.DEVICE_PREFETCH)
 
     def drain_loss(pending: deque) -> None:
@@ -303,8 +336,9 @@ def trainer(model, logger, writer, log_save_path: str = "", config=None,
             n_batches = 0
             pending: deque = deque()
             for image, label in prefetch_to_device(
-                    train_loader.epoch_batches(epoch_num), dev, device_prefetch,
-                    loader_wait):
+                    train_loader.epoch_batches_merged(epoch_num, merge,
+                                                      shard=(rank, world)),
+                    dev, device_prefetch, loader_wait):
                 pending.append(train_step(state, image, label, lr))
                 n_batches += 1
                 if len(pending) > 1:
@@ -312,29 +346,44 @@ def trainer(model, logger, writer, log_save_path: str = "", config=None,
             while pending:
                 drain_loss(pending)
             epoch_time = time.perf_counter() - t0
+            if n_batches != train_loader.num_batches(epoch_num, merge):
+                raise RuntimeError(f"epoch {epoch_num}: {n_batches} steps, the plan has "
+                                   f"{train_loader.num_batches(epoch_num, merge)}")
+            if distributed:
+                check_replicas(model)
+                logger.info("rank_sync " + json.dumps({
+                    "epoch": epoch_num + 1, "world": world,
+                    "frozen_stages": sorted(frozen_stages),
+                    "stage_sums": stage_sums(model)}))
             mean_train_loss = (sum(train_loss_list) / len(train_loss_list)
                                if train_loss_list else float("nan"))
             logger.info(f"Epoch {epoch_num + 1}: {n_batches} batches, lr={lr:.3e}, "
                         f"mean_train_loss={mean_train_loss:.5f}, {epoch_time:.1f}s")
 
-            # -------- validation --------
+            # -------- validation: rank 0's Score decides on every rank --------
             t0 = time.perf_counter()
-            mean_dice, output_dict, score, _, _ = validate(
-                eval_step, valloader, epoch_num + 1,
-                sig_threshold=float(config.TRAIN.SIG_THRESHOLD),
-                output_num=int(config.SHOW_PREDICTIONS), mean_train_loss=mean_train_loss,
-                logger=logger, csv_handler=csv_handler, num_classes=num_classes)
-            logger.info("epoch_timing " + json.dumps({
-                "epoch": epoch_num + 1, "train_s": epoch_time, "steps": n_batches,
-                "loader_wait_s": loader_wait[0], "val_s": time.perf_counter() - t0,
-                "val_cases": len(valloader)}))
+            if is_main:
+                mean_dice, output_dict, score, _, _ = validate(
+                    eval_step, valloader, epoch_num + 1,
+                    sig_threshold=float(config.TRAIN.SIG_THRESHOLD),
+                    output_num=int(config.SHOW_PREDICTIONS),
+                    mean_train_loss=mean_train_loss, logger=logger,
+                    csv_handler=csv_handler, num_classes=num_classes)
+                logger.info("epoch_timing " + json.dumps({
+                    "epoch": epoch_num + 1, "train_s": epoch_time, "steps": n_batches,
+                    "loader_wait_s": loader_wait[0], "val_s": time.perf_counter() - t0,
+                    "val_cases": len(valloader)}))
+            else:
+                output_dict, score = [], float("nan")
+            if distributed:
+                score = broadcast_float(score)
 
             # -------- model selection (Score) --------
             if score > best_score:
                 save_best_output = output_dict
                 best_score = score
                 since_best = 0
-                if config.SAVE_BEST_RUN:
+                if config.SAVE_BEST_RUN and is_main:
                     path = ckpt_writer.save_best(log_save_path, model, epoch_num + 1,
                                                  best_score)
                     logger.info(f"Saved new BEST weights to {path} "
@@ -354,17 +403,18 @@ def trainer(model, logger, writer, log_save_path: str = "", config=None,
 
             if epoch_num >= max_epoch - 1:
                 last_run = True
-                if config.SAVE_LAST_RUN:
+                if config.SAVE_LAST_RUN and is_main:
                     ckpt_writer.save_last(log_save_path, epoch_num, model, state.optimizer,
                                           iter_num, mean_dice)
             if last_run:
-                if save_best_output:
+                if save_best_output and is_main:
                     create_bin_heat_mask_from_list(
                         save_best_output, pred_dir, config.DATA.DATA_PATH,
                         threshold=float(config.TRAIN.SIG_THRESHOLD))
                 break
     finally:
-        csv_handler.close_files()
+        if csv_handler is not None:
+            csv_handler.close_files()
         if writer is not None:
             writer.close()
     ckpt_writer.close()  # waits for background saves; re-raises a failure

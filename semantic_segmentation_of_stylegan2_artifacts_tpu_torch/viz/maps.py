@@ -1,12 +1,13 @@
-"""Prediction exports: grey heatmap, binary mask, colour heatmap, contour
-overlay and multi-class class maps (counterpart of the JAX package's
-``viz/maps.py``; reference ``scripts/map_generator.py``).  PIL, matplotlib
+"""Prediction exports: grey heatmap, binary mask, colour heatmap,
+probability contours, contour overlay and multi-class class maps
+(counterpart of the JAX package's ``viz/maps.py``; reference
+``scripts/map_generator.py``).  PIL, matplotlib
 and cv2 are imported only inside the writers."""
 
 from __future__ import annotations
 
 import os
-from typing import Iterable, List, Tuple
+from typing import Iterable, List, Sequence, Tuple
 
 import numpy as np
 
@@ -62,6 +63,25 @@ def save_color_heatmap(img_hw3: np.ndarray, heat_hw: np.ndarray, out_png: str,
     ax.imshow(img)
     hm = ax.imshow(heat, cmap=cmap, alpha=alpha, vmin=0.0, vmax=1.0)
     fig.colorbar(hm, ax=ax, fraction=0.046, pad=0.04)
+    ax.axis("off")
+    fig.savefig(out_png, bbox_inches="tight", dpi=150)
+    plt.close(fig)
+
+
+def save_contour_heatmap(img_hw3: np.ndarray, heat_hw: np.ndarray, out_png: str,
+                         levels: Sequence[float] = (0.3, 0.6, 0.9)) -> None:
+    """Probability contours at fixed levels over the image (reference
+    ``map_generator.py:67-106``); needs matplotlib, which no CLI calls for."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(6, 6))
+    ax.imshow(np.asarray(img_hw3, dtype=np.uint8))
+    cs = ax.contour(np.clip(np.asarray(heat_hw, np.float32), 0, 1),
+                    levels=list(levels), colors=["green", "yellow", "red"])
+    ax.clabel(cs, inline=True, fontsize=6)
     ax.axis("off")
     fig.savefig(out_png, bbox_inches="tight", dpi=150)
     plt.close(fig)

@@ -131,10 +131,15 @@ from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.cli import (
     predict_cli, run_cli, test_cli, train_cli)
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.core import yaml_editor
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools import (
-    epoch_bench, parity_vs_deploy)
+    ckpt_inspect, dataset_check, dp_check, epoch_bench, parity_vs_deploy)
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train import (
     checkpoint, lr_range, trainer)
-from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.viz import plots
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.viz import (
+    artifact_distribution, eval_overlays, plots)
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.viz.maps import save_contour_heatmap
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.data import build_mask, splits
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.parallel import mesh, multihost
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.utils import flops, profiling
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import MSUNet
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train.state import make_predict_step
 m = MSUNet(img_size=32, embed_dim=128, depths=(1, 1, 1, 1), num_heads=(2, 2, 4, 4),

@@ -11,7 +11,8 @@ depths 1/1/1/1, window 4, float32, the kernel knobs off).
   step count (with and without a frozen encoder, whose unfreezes replay).
 * A non-finite loss raises ``FloatingPointError``; early stopping ends the
   run; ``TPU.CKPT_BACKEND: orbax`` raises.
-* The train and test CLIs on ``--device cpu`` write ``config_used.yaml``,
+* The train and test CLIs on ``--device cpu`` write ``config_used.yaml`` (a
+  byte copy of ``--cfg``),
   ``log.txt``, the 7 CSVs and the checkpoint under the JAX CLIs' file names
   (``.pth`` for ``.msgpack``); without CUDA and without ``--device`` they
   raise; the test CLI's ``--tile`` evaluates 48^2 images through a 32^2
@@ -280,6 +281,13 @@ def test_train_and_test_clis_write_the_jax_file_names(tmp_path, data, monkeypatc
     assert sum(n.startswith("test/predictions/") for n in got) == 3 * 5
     assert load_config(os.path.join(out["port"], "config_used.yaml")) == \
         load_config(_config(tmp_path / "port", data))
+    # both CLIs copy --cfg byte for byte, as JAX cli/train_cli.py and
+    # cli/test_cli.py do (shutil.copy)
+    with open(_config(tmp_path / "port", data), "rb") as f:
+        passed = f.read()
+    for name in ("config_used.yaml", "test/config_used.yaml"):
+        with open(os.path.join(out["port"], name), "rb") as f:
+            assert f.read() == passed, name
 
 
 def test_clis_raise_without_cuda(tmp_path, data, monkeypatch):
