@@ -119,12 +119,24 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    two gloo ranks on the card: each epoch's ``rank_sync`` line (the
    trainer raises unless both ranks hold the same parameters) shows the
    frozen stages at their initial values and each unfrozen stage moved;
+15. tensor and spatial parallelism on the one card (run before 9): two gloo
+   ranks share it (NCCL across cards is not run) and train Swin-B 512^2,
+   batch 2, float32, drop rates 0, every kernel knob on, for three steps,
+   (a) with ``TPU.MODEL_AXIS`` on a mesh with ``n_model=2``
+   (``parallel/tp.py``), (b) with ``TPU.SPATIAL_AXIS`` and ``n_space=2``
+   (``parallel/spatial.py``; the stage grids 128/64/32/16 pad to
+   133/70/35/21: uneven slabs, shifted windows across the ranks), each
+   against one process's composed step from the same seeded weights: no
+   kernel launched under the axis (the axis routes them off), losses
+   within ``SHARD_LOSS_TOL``, parameters within Adam's bound of 2 x lr x
+   steps with at most 1e-3 of them beyond 1e-5; then each rank's ms/step
+   (CUDA events), device time of one step (profiler) and peak memory;
 9. prints the kernels line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase prints ``chip_smoke: phase <n> <name> failed: <error>``
 on stdout, with the shape where a shape check failed, and re-raises: the
-exit is non-zero (a failed rank of phase 14 raises in this process, named
+exit is non-zero (a failed rank of phase 14 or 15 raises in this process, named
 by ``torch.multiprocessing``).  It imports torch, numpy, the standard library and the
 port; without a GPU, or without the port beside it, it exits non-zero
 before printing any result.
@@ -1891,13 +1903,8 @@ def two_ranks_gloo(train_args, rng, run_dir: str, card: str) -> None:
     if ranks[0]["losses"] != ranks[1]["losses"]:
         raise AssertionError(f"ranks report other losses: {[r['losses'] for r in ranks]}")
     dl = max(abs(a - b) for a, b in zip(ranks[0]["losses"], one["losses"]))
-    worst, worst_name, n_far, n_all = 0.0, "", 0, 0
-    for k, want in one["state_dict"].items():
-        d = (ranks[0]["state_dict"][k] - want).abs()
-        if d.max().item() > worst:
-            worst, worst_name = d.max().item(), k
-        n_far += int((d > 1e-5).sum())
-        n_all += d.numel()
+    worst, worst_name, n_far, n_all = param_agreement(ranks[0]["state_dict"],
+                                                      one["state_dict"])
     bound = 2 * DP_LR * DP_STEPS
     print(f"Swin-B 512^2 f32, global batch {B} ({B // 2} + {B // 2}), {DP_STEPS} steps at lr "
           f"{DP_LR:g}: losses {ranks[0]['losses']} vs one process {one['losses']}, max "
@@ -1914,6 +1921,19 @@ def two_ranks_gloo(train_args, rng, run_dir: str, card: str) -> None:
               f"gloo, two ranks sharing the card): {r['ms']:.2f} ms/step (CUDA events), "
               f"{r['host_ms']:.2f} ms (host), MFU {step_mfu(bf16, B, r['ms'], n_params):.4f}, "
               f"peak {r['peak_gib']:.2f} GiB; {card}")
+
+
+def param_agreement(got: dict, want: dict) -> tuple:
+    """``(worst |diff|, its name, elements beyond 1e-5, elements)`` of two
+    state dicts."""
+    worst, worst_name, n_far, n_all = 0.0, "", 0, 0
+    for k, w in want.items():
+        d = (got[k] - w).abs()
+        if d.max().item() > worst:
+            worst, worst_name = d.max().item(), k
+        n_far += int((d > 1e-5).sum())
+        n_all += d.numel()
+    return worst, worst_name, n_far, n_all
 
 
 def unfreeze_config(run_dir: str, data: str) -> str:
@@ -2001,6 +2021,80 @@ def data_parallel(train_args, build, rng, card: str, want: dict) -> None:
         staged_unfreeze(run_dir, card)
         print(f"phase 14 parts: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
               f"{time.perf_counter() - t2:.1f} s")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
+# phase 15: tensor and spatial parallelism on the one card, two gloo ranks
+# sharing it (NCCL refuses two ranks on one device).  Each axis trains the
+# f32 model with every kernel knob on, which the axis routes off, against one
+# process's composed step from the same seeded weights.
+SHARD_STEPS = 3         # float32 steps held against one process
+SHARD_TIMED = 2         # steps timed on each rank
+SHARD_BATCH = 2
+SHARD_LR = 1e-4
+SHARD_LOSS_TOL = 1e-5   # tests/test_torch_tp.py, tests/test_torch_spatial.py
+SHARD_AXES = (("tensor parallel", "TPU.MODEL_AXIS", "model", {"n_model": 2}),
+              ("spatial sharding", "TPU.SPATIAL_AXIS", "space", {"n_space": 2}))
+
+
+def tensor_and_spatial(train_args, rng, card: str, device: str = "cuda:0") -> None:
+    """Phase 15: each axis of ``SHARD_AXES`` on two gloo ranks against one
+    process (``tools/dp_check.py``)."""
+    import shutil
+
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools import dp_check
+
+    default_config = train_args[0]
+    f32 = {**TRAIN_CHANGES, "MODEL.DROP_PATH_RATE": 0.0, "TPU.COMPUTE_DTYPE": "float32",
+           "TPU.SOFTMAX_DTYPE": "float32"}
+    run_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "model_out",
+                           "chip_smoke_phase15")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    try:
+        batches = [train_batch(rng, SHARD_BATCH) for _ in range(SHARD_STEPS)]
+        plain = write_config(deployment_config(default_config, **{**f32, **COMPOSED}),
+                             os.path.join(run_dir, "composed.yaml"))
+        t0 = time.perf_counter()
+        one = dp_check.run_steps(dp_check.make_spec(plain, batches, SHARD_LR, device=device))
+        print(f"one process, composed, Swin-B {IMG}^2 b{SHARD_BATCH} f32, {SHARD_STEPS} steps: "
+              f"losses {one['losses']} in {time.perf_counter() - t0:.1f} s")
+        print("tensor and spatial parallelism: two ranks on one card over gloo with CUDA "
+              "tensors (NCCL refuses two ranks on one device); NCCL across cards is not run "
+              "(one card)")
+        for reason, key, axis, mesh_kw in SHARD_AXES:
+            path = write_config(deployment_config(default_config, **{**f32, key: axis}),
+                                os.path.join(run_dir, f"{axis}.yaml"))
+            spec = dp_check.make_spec(path, batches, SHARD_LR, device=device, backend="gloo",
+                                      threads=4, timed={"cfg_path": path, "batch": SHARD_BATCH,
+                                                        "steps": SHARD_TIMED}, **mesh_kw)
+            t0 = time.perf_counter()
+            ranks = dp_check.spawn_steps(spec, 2, os.path.join(run_dir, axis))
+            wall = time.perf_counter() - t0
+            launched = {k: v for r in ranks for k, v in r["launches"].items() if v}
+            if launched:
+                raise AssertionError(f"{reason}: kernels launched under the axis: {launched}")
+            if any(r["losses"] != ranks[0]["losses"] for r in ranks):
+                raise AssertionError(f"{reason}: ranks report other losses: "
+                                     f"{[r['losses'] for r in ranks]}")
+            dl = max(abs(a - b) for a, b in zip(ranks[0]["losses"], one["losses"]))
+            worst, worst_name, n_far, n_all = param_agreement(ranks[0]["state_dict"],
+                                                              one["state_dict"])
+            bound = 2 * SHARD_LR * SHARD_STEPS
+            print(f"{reason} ({axis} axis 2, coords {[r['coords'] for r in ranks]}), every "
+                  f"kernel knob on: kernel launches 0 (routed off); losses {ranks[0]['losses']}"
+                  f" vs one process {one['losses']}, max |diff| {dl:.3e} (tol "
+                  f"{SHARD_LOSS_TOL:g}); parameters max |diff| {worst:.3e} ({worst_name}; "
+                  f"bound 2 x lr x steps = {bound:g}), {n_far} of {n_all} elements beyond "
+                  f"1e-5 (tol 1e-3 of them); {wall:.1f} s with the ranks' start")
+            if not dl <= SHARD_LOSS_TOL or not worst <= bound or not n_far <= 1e-3 * n_all:
+                raise AssertionError(f"{reason}: two ranks differ from one process")
+            for r in ranks:
+                print(f"  {axis} rank {r['coords']}: Swin-B {IMG}^2 b{SHARD_BATCH} f32 step "
+                      f"{r['ms']:.2f} ms (CUDA events, {SHARD_TIMED} steps), {r['host_ms']:.2f} "
+                      f"ms (host), device time {r['device_ms']:.2f} ms (profiler, one step), "
+                      f"peak {r['peak_gib']:.2f} GiB; {card}")
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
 
@@ -2211,6 +2305,12 @@ def main() -> int:
 
     with phase(14, "data parallel"):
         data_parallel(train_args, _build, rng, card, phase6_launches)
+        torch.cuda.empty_cache()
+
+    with phase(15, "tensor and spatial parallelism"):
+        t0 = time.perf_counter()
+        tensor_and_spatial(train_args, rng, card)
+        print(f"phase 15: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
     with phase(9, "report"):

@@ -243,7 +243,9 @@ def default_config() -> CfgNode:
     # GELU form; ATTN_WINDOW_GROUP and HOLD_WINDOW_LAYOUT are XLA layout
     # choices, read and ignored; MESH_SHAPE's first (data) axis is read and
     # ignored (HARDWARE.N_GPU sizes it, as in JAX), a model or space axis
-    # above 1, SPATIAL_AXIS and MODEL_AXIS raise (not ported yet); REMAT recomputes Swin blocks in training
+    # above 1 raises (the trainer builds a data mesh only, as JAX's does);
+    # SPATIAL_AXIS and MODEL_AXIS route every kernel off, as in JAX (the
+    # groups come from parallel/mesh.py::make_mesh); REMAT recomputes Swin blocks in training
     # (models/msunet.py::resolve_remat); the trainer reads
     # PREFETCH_DEPTH (batches decoded ahead), DEVICE_PREFETCH (batches copied
     # to the card ahead), EVAL_BATCH, and CKPT_BACKEND / CKPT_ASYNC

@@ -21,6 +21,13 @@ Recomputation (JAX ``_maybe_remat``, ``models/layers.py:634-649``): a stage
 built with ``remat`` runs each Swin block in training through
 :func:`recomputed`, which keeps the block's input and recomputes its
 activations in the backward pass; the noise of the recompute is replayed.
+
+Tensor parallelism and spatial sharding (``parallel/tp.py``,
+``parallel/spatial.py``): a module with a ``tp`` attribute computes its
+heads or hidden units between the model group's f and g once one is
+attached; a module with a ``space`` attribute works on its rank's H-slab
+once a space group is attached.  The dropouts then draw whole-size masks
+and take their part, so every rank's generator advances as one process's.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
+    set_checkpoint_early_stop,
 )
 
 from ..ops import (
@@ -44,7 +52,13 @@ from ..ops import (
     fused_window_attention,
     patch_ops,
 )
-from ..ops.window_attention import dropout_keep, keep_mask, shifted_window_attention
+from ..ops.window_attention import (
+    Parts,
+    dropout_keep,
+    keep_mask,
+    shifted_window_attention,
+)
+from ..parallel import spatial
 
 LN_EPS = 1e-5
 _GENERATOR: list = [None]
@@ -73,7 +87,8 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
         else CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def recomputed(fn, x: torch.Tensor, policy: str = "") -> torch.Tensor:
+def recomputed(fn, x: torch.Tensor, policy: str = "",
+               collectives: bool = False) -> torch.Tensor:
     """``fn(x)`` under non-reentrant ``torch.utils.checkpoint``: the backward
     pass recomputes the activations of ``fn`` from ``x``.  ``policy`` ""
     recomputes everything, "dots" keeps the outputs of the non-batched
@@ -86,7 +101,11 @@ def recomputed(fn, x: torch.Tensor, policy: str = "") -> torch.Tensor:
     dropout and stochastic-depth masks equal the forward's bit for bit,
     while the live generator advances in the forward only, as without
     recomputation.  Without a generator the recompute has none either, and
-    a noisy forward raises (:func:`..ops.window_attention.keep_mask`)."""
+    a noisy forward raises (:func:`..ops.window_attention.keep_mask`).
+
+    ``collectives``: ``fn`` talks to other ranks (tensor parallelism,
+    spatial sharding), so the recompute runs it whole, replaying every
+    collective in the same order on every rank, never stopping early."""
     generator = _GENERATOR[0]
     state = None if generator is None else generator.get_state()
 
@@ -97,8 +116,9 @@ def recomputed(fn, x: torch.Tensor, policy: str = "") -> torch.Tensor:
         return forward, _replaying(recompute, generator, state)
 
     # the blocks draw no noise from the default generators: nothing to keep
-    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False,
-                      context_fn=contexts)
+    with set_checkpoint_early_stop(not collectives):
+        return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=contexts)
 
 
 @contextlib.contextmanager
@@ -117,11 +137,12 @@ def _replaying(recompute, generator: Optional[torch.Generator],
         yield
 
 
-def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
-    """flax ``nn.Dropout`` with ``deterministic = not training``."""
+def dropout(x: torch.Tensor, rate: float, training: bool, parts: Parts = ()) -> torch.Tensor:
+    """flax ``nn.Dropout`` with ``deterministic = not training``; ``parts``
+    as :func:`..ops.window_attention.dropout_keep`'s."""
     if not training or rate == 0.0:
         return x
-    return dropout_keep(x, rate, _GENERATOR[0])
+    return dropout_keep(x, rate, _GENERATOR[0], parts)
 
 
 def gelu(x: torch.Tensor, tanh: bool) -> torch.Tensor:
@@ -181,7 +202,9 @@ class StochasticDepth(nn.Module):
 
 
 class Mlp(nn.Sequential):
-    """Linear -> GELU -> Dropout -> Linear -> Dropout (keys ``mlp.0``/``mlp.3``)."""
+    """Linear -> GELU -> Dropout -> Linear -> Dropout (keys ``mlp.0``/``mlp.3``).
+    Under tensor parallelism ``mlp.0`` holds this rank's hidden units
+    (column-parallel) and ``mlp.3`` their columns (row-parallel)."""
 
     def __init__(self, dim: int, hidden: int, gelu_tanh: bool, dtype: torch.dtype,
                  drop: float = 0.0):
@@ -190,11 +213,21 @@ class Mlp(nn.Sequential):
         self.gelu_tanh = gelu_tanh
         self.drop = float(drop)
         self.dtype = dtype
+        self.tp = None
+        self.space = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = gelu(linear(x, self[0], self.dtype), self.gelu_tanh)
-        x = dropout(x, self.drop, self.training)
-        return dropout(linear(x, self[3], self.dtype), self.drop, self.training)
+        rows = () if self.space is None else self.space.row_part(x)
+        if self.tp is None:
+            x = gelu(linear(x, self[0], self.dtype), self.gelu_tanh)
+            x = dropout(x, self.drop, self.training, rows)
+            return dropout(linear(x, self[3], self.dtype), self.drop, self.training, rows)
+        hidden = self[0].out_features  # the full width: the shard cut the weight only
+        start, _ = self.tp.part(hidden)
+        x = gelu(linear(self.tp.copy(x), self[0], self.dtype), self.gelu_tanh)
+        x = dropout(x, self.drop, self.training, rows + ((x.ndim - 1, start, hidden),))
+        x = self.tp.reduce(F.linear(x, self[3].weight.to(self.dtype)))
+        return dropout(x + self[3].bias.to(self.dtype), self.drop, self.training, rows)
 
 
 class WindowAttention(nn.Module):
@@ -202,7 +235,10 @@ class WindowAttention(nn.Module):
 
     ``fused``: the window-shaped middle runs in the CUDA kernels
     (``TPU.USE_PALLAS_ATTENTION``) unless a dropout is active in training,
-    which the composed op takes (JAX ``models/layers.py:233-262``)."""
+    which the composed op takes (JAX ``models/layers.py:233-262``).  Under
+    tensor parallelism qkv holds this rank's heads, proj their columns, and
+    the replicated bias table gives their columns; under spatial sharding
+    the composed op runs on the rank's slab."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
                  qkv_bias: bool = True, fused: bool = False,
@@ -222,18 +258,31 @@ class WindowAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
+        self.tp = None
+        self.space = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        args = (x.to(self.dtype), self.qkv.weight, self.qkv.bias, self.proj.weight,
-                self.proj.bias, self.relative_position_bias_table)
+        x = x.to(self.dtype)
+        table = self.relative_position_bias_table
         kw = dict(window_size=self.window_size, shift_size=self.shift_size,
                   num_heads=self.num_heads)
         noisy = self.training and (self.attention_dropout > 0.0 or self.dropout > 0.0)
         if self.fused and not noisy:
-            return fused_window_attention.fused_shifted_window_attention(*args, **kw)
+            return fused_window_attention.fused_shifted_window_attention(
+                x, self.qkv.weight, self.qkv.bias, self.proj.weight, self.proj.bias, table,
+                **kw)
         if noisy:
             kw.update(attention_dropout=self.attention_dropout, dropout=self.dropout,
                       generator=_GENERATOR[0])
+        if self.tp is not None:
+            start, count = self.tp.part(self.num_heads)
+            x, table = self.tp.copy(x), table[:, start:start + count]
+            kw.update(num_heads=count, heads=((2, start, self.num_heads),),
+                      reduce=self.tp.reduce)
+        args = (x, self.qkv.weight, self.qkv.bias, self.proj.weight, self.proj.bias, table)
+        if self.space is not None:
+            return spatial.window_attention(self.space, *args,
+                                            softmax_dtype=self.softmax_dtype, **kw)
         return shifted_window_attention(*args, softmax_dtype=self.softmax_dtype, **kw)
 
 
@@ -285,8 +334,11 @@ class PatchMerging(nn.Module):
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
         self.fused = fused
         self.dtype = dtype
+        self.space = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.space is not None:
+            x = spatial.merge_rows(self.space, x)
         if self.fused:
             return fused_patch.fused_patch_merge(
                 x.to(self.dtype).contiguous(), self.norm.weight, self.norm.bias,
@@ -304,8 +356,15 @@ class PatchExpand(nn.Module):
         self.norm = LayerNorm(dim // 2, dtype)
         self.fused = fused
         self.dtype = dtype
+        self.space = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.space is not None:
+            x, start, count = spatial.expand_rows(self.space, x)
+            return self._expand(x)[:, start:start + count]
+        return self._expand(x)
+
+    def _expand(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused:
             return fused_patch.fused_patch_expand(
                 x.to(self.dtype).contiguous(), self.expand.weight, self.norm.weight,
@@ -339,8 +398,17 @@ class FinalPatchExpandX4V2(nn.Module):
         self.fused_refine = fused and fused_refine_head.supported(dim, gelu_tanh)
         self.fused_gelu_d2s = fused and gelu_tanh and not self.fused_refine
         self.dtype = dtype
+        self.space = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.space is not None:
+            pixels = self.space.slabs(x.shape[2]).scaled(4)
+            x = patch_ops.depth_to_space(gelu(linear(x, self.expand, self.dtype),
+                                              self.gelu_tanh), 4)
+            x = gelu(spatial.halo_conv(self.space, x, pixels, self.refine1, self.dtype),
+                     self.gelu_tanh)
+            return self.norm(spatial.halo_conv(self.space, x, pixels, self.refine2,
+                                               self.dtype))
         x = linear(x, self.expand, self.dtype)
         if self.fused_refine:
             return fused_refine_head.fused_refine_head(
@@ -376,7 +444,11 @@ class _Stage(nn.Module):
         on), else called directly (eval and ``no_grad`` launch the same)."""
         recompute = self.remat and self.training and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = recomputed(blk, x, self.remat_policy) if recompute else blk(x)
+            if recompute:
+                talks = blk.attn.tp is not None or blk.attn.space is not None
+                x = recomputed(blk, x, self.remat_policy, collectives=talks)
+            else:
+                x = blk(x)
         return x
 
 

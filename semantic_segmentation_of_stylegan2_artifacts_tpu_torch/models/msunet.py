@@ -24,10 +24,12 @@ What differs from the JAX package on purpose:
   runs on every stage.
 * ``TPU.HOLD_WINDOW_LAYOUT`` and ``TPU.ATTN_WINDOW_GROUP`` are XLA layout
   choices that leave the numbers unchanged; they are read and ignored.
-* ``TPU.SPATIAL_AXIS``, ``TPU.MODEL_AXIS`` and a ``TPU.MESH_SHAPE`` with a
-  model or space axis (tensor and spatial parallelism) are not ported yet
-  and raise ``NotImplementedError``; ``HARDWARE.N_GPU`` data parallelism
-  is the trainer's (``parallel/mesh.py``).
+* ``TPU.MODEL_AXIS`` / ``TPU.SPATIAL_AXIS`` route every kernel off, as in
+  JAX (:func:`attention_plan` names the reason); the groups come from the
+  library (``parallel/mesh.py::make_mesh``, ``parallel/tp.py``,
+  ``parallel/spatial.py``), as JAX's mesh does.  A ``TPU.MESH_SHAPE`` with
+  a model or space axis raises, as the JAX trainer builds a data mesh only;
+  ``HARDWARE.N_GPU`` data parallelism is the trainer's.
 
 Recomputation (``TPU.REMAT``, ``TRAIN.USE_CHECKPOINT``) resolves as in the
 JAX package (:func:`resolve_remat`): ``full`` and ``dots`` (and
@@ -47,6 +49,7 @@ import torch
 import torch.nn as nn
 
 from ..core.device import compute_dtype, resolve_device
+from ..parallel import spatial
 from ..parallel.mesh import world_size_for
 from .layers import (
     BasicLayer,
@@ -103,9 +106,21 @@ class MSUNetSys(nn.Module):
                  dtype: torch.dtype = torch.float32, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.1,
                  use_remat: bool = False, remat_high_res: bool = False,
-                 remat_policy: str = ""):
+                 remat_policy: str = "", model_axis: str = "", spatial_axis: str = ""):
         super().__init__()
         self.img_size = img_size
+        self.patch_size = patch_size
+        self.embed_dim = embed_dim
+        self.window_size = window_size
+        # the knobs as asked, for attention_plan; a model or space axis routes
+        # every kernel off (JAX MSUNetSys._stage_pallas, setup): the kernels
+        # take whole weights and whole maps
+        self.requested = dict(attention=fused_attention, patch=fused_patch, head=fused_head)
+        self.model_axis = model_axis
+        self.spatial_axis = spatial_axis
+        if model_axis or spatial_axis:
+            fused_attention = fused_patch = fused_head = False
+        self.space = None
         self.use_remat = use_remat
         self.remat_high_res = remat_high_res
         self.depths = tuple(depths)
@@ -159,7 +174,9 @@ class MSUNetSys(nn.Module):
         return linear(x, self.concat_back_dim[i], self.dtype)
 
     def forward_features(self, x: torch.Tensor):
-        x = dropout(self.patch_embed(x), self.drop_rate, self.training)  # pos_drop
+        x = self.patch_embed(x)
+        rows = () if self.space is None else self.space.row_part(x)
+        x = dropout(x, self.drop_rate, self.training, rows)  # pos_drop
         skips: List[torch.Tensor] = []
         for i_layer, layer in enumerate(self.layers):
             if i_layer == 1:  # cent decoder 2 rewrites skip 0 (reference :785-795)
@@ -194,10 +211,47 @@ class MSUNetSys(nn.Module):
         if h != self.img_size or w != self.img_size:
             raise ValueError(f"Input image size ({h}*{w}) doesn't match model "
                              f"({self.img_size}*{self.img_size}).")
+        if self.spatial_axis:
+            return self._forward_slab(x)
         x, skips = self.forward_features(x)
         x = self.up(self.forward_up_features(x, skips))
         return torch.nn.functional.linear(
             x.to(self.dtype), self.output.weight[:, :, 0, 0].to(self.dtype))
+
+    def _forward_slab(self, x: torch.Tensor) -> torch.Tensor:
+        """Spatial sharding: this rank's pixel rows through the network on
+        its slabs, then the logits gathered in H on every rank."""
+        if self.space is None:
+            raise RuntimeError(f"spatial_axis {self.spatial_axis!r} is set but no space "
+                               "group is attached (parallel/spatial.py::attach_space)")
+        pixels = self.space.slabs(self.img_size // self.patch_size).scaled(self.patch_size)
+        lo, hi = pixels.bounds[self.space.rank]
+        x, skips = self.forward_features(x[:, lo:hi])
+        x = self.up(self.forward_up_features(x, skips))
+        x = torch.nn.functional.linear(x.to(self.dtype),
+                                       self.output.weight[:, :, 0, 0].to(self.dtype))
+        return spatial.gather_rows(x, self.space, pixels)
+
+
+def attention_plan(model: nn.Module) -> List[str]:
+    """Which path each encoder stage's attention, the patch merges and
+    expands, and the head take, with JAX ``attention_plan``'s reasons
+    (``models/msunet.py:83-150``): under a model or space axis every kernel
+    is routed off.  A pure function of the model's configuration."""
+    sys = getattr(model, "ms_unet", model)
+    reason = ("spatial sharding" if sys.spatial_axis
+              else "tensor parallel" if sys.model_axis else "")
+    lines = []
+    for i in range(len(sys.depths)):
+        grid = sys.img_size // sys.patch_size // 2 ** i
+        path = ("composed (disabled)" if not sys.requested["attention"]
+                else f"composed ({reason})" if reason else "kernel")
+        lines.append(f"attention stage {i}: grid {grid}x{grid} c{sys.embed_dim * 2 ** i} "
+                     f"-> {path}")
+    for part, label in (("patch", "patch merge/expand"), ("head", "head")):
+        if sys.requested[part]:
+            lines.append(f"{label}: {'composed (sharded)' if reason else 'kernel'}")
+    return lines
 
 
 _TRUNC_STD = 0.02 / 0.87962566103423978  # unit std after truncation at +-2
@@ -260,7 +314,7 @@ class MSUNet(nn.Module):
         ``MODEL.NUM_CLASSES``."""
         dev = resolve_device(device)
         tpu = config.TPU
-        world_size_for(config)  # a model or space axis raises: not ported yet
+        world_size_for(config)  # a MESH_SHAPE model or space axis raises
         swin = config.MODEL.SWIN
         use_remat, remat_high_res, remat_policy = resolve_remat(config, img_size)
         model = cls(
@@ -287,6 +341,8 @@ class MSUNet(nn.Module):
             use_remat=use_remat,
             remat_high_res=remat_high_res,
             remat_policy=remat_policy,
+            model_axis=str(getattr(tpu, "MODEL_AXIS", "")),
+            spatial_axis=str(getattr(tpu, "SPATIAL_AXIS", "")),
         )
         init_weights(model, int(config.SEED))
         return model.to(dev).eval()

@@ -16,11 +16,14 @@ training; ``ops/fused_window_attention.py`` holds the kernel path.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# ``(dim, start, total)`` for each dimension on which a tensor is one rank's part
+Parts = Tuple[Tuple[int, int, int], ...]
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,13 +116,83 @@ def keep_mask(shape, keep: float, generator: Optional[torch.Generator],
     return torch.rand(shape, generator=generator, device=device) < keep
 
 
-def dropout_keep(x: torch.Tensor, rate: float,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout_keep(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+                 parts: Parts = ()) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability ``1-rate``
-    and scale it by ``1/(1-rate)``; zero the rest."""
+    and scale it by ``1/(1-rate)``; zero the rest.
+
+    ``parts``: ``(dim, start, total)`` for each dimension on which ``x`` is
+    one rank's part of a larger tensor (its heads or hidden units under
+    tensor parallelism, its rows or windows under spatial sharding).  The
+    mask is drawn at the whole size and this part taken, so every rank
+    draws what one process would and the generator advances alike on every
+    rank."""
     keep = 1.0 - rate
-    mask = keep_mask(x.shape, keep, generator, x.device)
+    shape = list(x.shape)
+    for dim, _, total in parts:
+        shape[dim] = total
+    mask = keep_mask(shape, keep, generator, x.device)
+    for dim, start, _ in parts:
+        mask = mask.narrow(dim, start, x.shape[dim])
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def attend_windows(
+    xw: torch.Tensor,
+    qkv_weight: torch.Tensor,
+    qkv_bias: Optional[torch.Tensor],
+    proj_weight: torch.Tensor,
+    proj_bias: Optional[torch.Tensor],
+    bias_table: torch.Tensor,
+    *,
+    window_size: Tuple[int, int],
+    num_heads: int,
+    mask: Optional[torch.Tensor],
+    softmax_dtype: torch.dtype = torch.float32,
+    attention_dropout: float = 0.0,
+    dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    windows: Parts = (),
+    heads: Parts = (),
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+) -> torch.Tensor:
+    """MHSA within each window of ``xw`` ``(B, nW, wh*ww, C)``: qkv, scores
+    + relative-position bias (+ ``mask`` ``(nW, N, N)``), softmax, ``.v``,
+    proj; returns ``(B, nW, N, C_out)``.
+
+    The head width is ``qkv_weight``'s rows over ``3 * num_heads``, so a
+    rank may hold some of the heads (tensor parallelism): ``heads`` and
+    ``windows`` place its heads and windows among all (see
+    :func:`dropout_keep`), and ``reduce`` sums the proj products over the
+    ranks before ``proj_bias`` is added."""
+    b, nw, n, _ = xw.shape
+    wh, ww = window_size
+    dt = xw.dtype
+    hd = qkv_weight.shape[0] // (3 * num_heads)
+    qkv = F.linear(xw, qkv_weight.to(dt),
+                   None if qkv_bias is None else qkv_bias.to(dt))
+    qkv = qkv.reshape(b, nw, n, 3, num_heads, hd).permute(3, 0, 1, 4, 2, 5)
+    q, k, v = qkv[0] * (hd ** -0.5), qkv[1], qkv[2]  # (B, nW, heads, N, hd)
+
+    attn = torch.matmul(q, k.transpose(-1, -2)).to(softmax_dtype)
+    attn = attn + gather_bias(bias_table, wh, ww, num_heads)[None, None].to(softmax_dtype)
+    if mask is not None:
+        attn = attn + mask[None, :, None].to(softmax_dtype)
+    attn = torch.softmax(attn, dim=-1)
+    if attention_dropout > 0.0:
+        attn = dropout_keep(attn, attention_dropout, generator, windows + heads)
+    out = torch.matmul(attn.to(dt), v)
+    out = out.permute(0, 1, 3, 2, 4).reshape(b, nw, n, num_heads * hd)
+    if reduce is None:
+        out = F.linear(out, proj_weight.to(dt),
+                       None if proj_bias is None else proj_bias.to(dt))
+    else:
+        out = reduce(F.linear(out, proj_weight.to(dt)))
+        if proj_bias is not None:
+            out = out + proj_bias.to(dt)
+    if dropout > 0.0:
+        out = dropout_keep(out, dropout, generator, windows)
+    return out
 
 
 def shifted_window_attention(
@@ -137,6 +210,8 @@ def shifted_window_attention(
     attention_dropout: float = 0.0,
     dropout: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    heads: Parts = (),
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Shifted-window MHSA on ``(B, H, W, C)`` (already normed), computed
     in ``x.dtype``; weights in torch layout ``(out, in)``.
@@ -144,34 +219,19 @@ def shifted_window_attention(
     ``attention_dropout`` drops softmax probabilities and ``dropout`` the
     projection output (JAX ``ops/window_attention.py:293-299, 467-472``),
     each keep scaled by ``1/(1-rate)``, with noise drawn from
-    ``generator``; callers pass rates of 0 outside training."""
+    ``generator``; callers pass rates of 0 outside training.
+    ``num_heads`` counts the heads the weights hold; ``heads`` and
+    ``reduce`` are :func:`attend_windows`' (tensor parallelism)."""
     b, h, w, c = x.shape
     wh, ww = window_size
     hp, wp, sh, sw = effective_shift(h, w, window_size, shift_size)
-    dt = x.dtype
-    hd = c // num_heads
-    n = wh * ww
-
-    xw = window_partition(pad_and_roll(x, hp, wp, sh, sw), wh, ww)
-    nw = xw.shape[1]
-    qkv = F.linear(xw, qkv_weight.to(dt),
-                   None if qkv_bias is None else qkv_bias.to(dt))
-    qkv = qkv.reshape(b, nw, n, 3, num_heads, hd).permute(3, 0, 1, 4, 2, 5)
-    q, k, v = qkv[0] * (hd ** -0.5), qkv[1], qkv[2]  # (B, nW, heads, N, hd)
-
-    attn = torch.matmul(q, k.transpose(-1, -2)).to(softmax_dtype)
-    attn = attn + gather_bias(bias_table, wh, ww, num_heads)[None, None].to(softmax_dtype)
+    mask = None
     if sh or sw:
         mask = torch.as_tensor(shifted_window_mask(hp, wp, wh, ww, sh, sw),
                                device=x.device)
-        attn = attn + mask[None, :, None].to(softmax_dtype)
-    attn = torch.softmax(attn, dim=-1)
-    if attention_dropout > 0.0:
-        attn = dropout_keep(attn, attention_dropout, generator)
-    out = torch.matmul(attn.to(dt), v)
-    out = out.permute(0, 1, 3, 2, 4).reshape(b, nw, n, c)
-    out = F.linear(out, proj_weight.to(dt),
-                   None if proj_bias is None else proj_bias.to(dt))
-    if dropout > 0.0:
-        out = dropout_keep(out, dropout, generator)
+    out = attend_windows(
+        window_partition(pad_and_roll(x, hp, wp, sh, sw), wh, ww), qkv_weight, qkv_bias,
+        proj_weight, proj_bias, bias_table, window_size=window_size, num_heads=num_heads,
+        mask=mask, softmax_dtype=softmax_dtype, attention_dropout=attention_dropout,
+        dropout=dropout, generator=generator, heads=heads, reduce=reduce)
     return unroll_and_crop(window_reverse(out, hp, wp, wh, ww), h, w, sh, sw)

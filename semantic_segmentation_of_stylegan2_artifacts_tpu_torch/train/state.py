@@ -11,9 +11,14 @@ forward, so a step is reproducible.
 
 Under data parallelism (``parallel/mesh.py::replicate_state``) the
 forward and backward run through the state's ``DistributedDataParallel``
-wrapper, which all-reduces the gradients: every micro-batch but the last
-under ``no_sync()``.  The rank folds into the noise seeds (rank 0 keeps the
-one-process seeds), and the returned loss is the mean over the ranks.
+wrapper, which all-reduces the gradients over the data group: every
+micro-batch but the last under ``no_sync()``.  The data rank folds into the
+noise seeds (data rank 0 keeps the one-process seeds), so the model and
+space ranks of one data shard draw the same masks, and the returned loss is
+the mean over the data ranks.  Under a mesh with a model or space axis the
+gradients those axes leave partial are summed before the update
+(``Mesh.reduce_gradients``); every rank computes its data shard's whole
+loss.
 """
 
 from __future__ import annotations
@@ -41,8 +46,9 @@ from .optim import build_optimizer, set_learning_rate
 class TrainState:
     """What a train step updates: the model's parameters (in place),
     the optimizer's moments, the step count; and the noise generator.
-    ``replica`` is the model's DDP wrapper under data parallelism, and
-    ``rank`` / ``world`` this rank's place."""
+    ``replica`` is the model's DDP wrapper under data parallelism,
+    ``rank`` / ``world`` this rank's data rank and the data size, and
+    ``mesh`` the ``parallel/mesh.py::Mesh`` when one was given."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
@@ -52,6 +58,7 @@ class TrainState:
     replica: Optional[torch.nn.Module] = None
     rank: int = 0
     world: int = 1
+    mesh: Optional[object] = None
 
 
 def create_train_state(model: torch.nn.Module, config, device=None) -> TrainState:
@@ -65,8 +72,9 @@ def create_train_state(model: torch.nn.Module, config, device=None) -> TrainStat
 
 
 def _noise_seed(seed: int, step: int, micro: int, rank: int = 0) -> int:
-    """The noise seed of a micro-batch; ranks other than 0 add their rank,
-    so the ranks draw independent masks for their different rows."""
+    """The noise seed of a micro-batch; data ranks other than 0 add their
+    data rank, so the data ranks draw independent masks for their
+    different rows."""
     entropy = [seed, step, micro] + ([rank] if rank else [])
     return int(np.random.SeedSequence(entropy).generate_state(1)[0])
 
@@ -144,10 +152,12 @@ def make_train_step(model: torch.nn.Module, loss_alpha: float, loss_beta: float,
         for p in model.parameters():
             if p.grad is None and p.requires_grad:
                 p.grad = torch.zeros_like(p)
+        if state.mesh is not None:
+            state.mesh.reduce_gradients(model)
         state.optimizer.step()
         state.step += 1
         if state.world > 1:
-            dist.all_reduce(loss)
+            dist.all_reduce(loss, group=None if state.mesh is None else state.mesh.data_group)
             loss = loss / state.world
         return loss / acc
 

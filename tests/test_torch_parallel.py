@@ -220,14 +220,17 @@ def test_mesh_validation():
     assert mesh.world_size_for(cfg) == 4
     for shape in ([2, 2], [1, 1, 2]):
         cfg.TPU.MESH_SHAPE = shape
-        with pytest.raises(NotImplementedError, match="model or space axis"):
+        with pytest.raises(NotImplementedError, match="data mesh only"):
             mesh.world_size_for(cfg)
         with pytest.raises(NotImplementedError):
             MSUNet.from_config(cfg, device="cpu")
     cfg.TPU.MESH_SHAPE = [0]
-    cfg.TPU.MODEL_AXIS = "model"
-    with pytest.raises(NotImplementedError, match="MODEL_AXIS"):
-        mesh.world_size_for(cfg)
+    # the axes route the kernels off, as in JAX; the groups are the library's
+    for key, attr in (("MODEL_AXIS", "model_axis"), ("SPATIAL_AXIS", "spatial_axis")):
+        cfg.TPU[key] = key.split("_")[0].lower()
+        assert mesh.world_size_for(cfg) == 4
+        assert getattr(MSUNet.from_config(cfg, device="cpu").ms_unet, attr) == cfg.TPU[key]
+        cfg.TPU[key] = ""
     # JAX make_mesh's text for too few devices; ranks on one card need a backend
     with pytest.raises(ValueError, match=r"mesh 2x1x1 needs 2 devices, have 0"):
         mesh.check_world(2, "cuda")

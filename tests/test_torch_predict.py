@@ -138,7 +138,8 @@ from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.viz import (
     artifact_distribution, eval_overlays, plots)
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.viz.maps import save_contour_heatmap
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.data import build_mask, splits
-from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.parallel import mesh, multihost
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.parallel import (
+    mesh, multihost, spatial, tp)
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.utils import flops, profiling
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import MSUNet
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train.state import make_predict_step
