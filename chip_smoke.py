@@ -83,7 +83,8 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    then times the literal-config step (CUDA events, MFU, the profiler's
    device time, peak memory) and an eval forward,
    and prints the trainer's epoch wall time, loader wait a step and
-   validation time a case, each beside the card line;
+   validation time a case, each beside the card line; every image the
+   three CLIs read must decode natively (``native.DECODES``: none by PIL);
 11. recomputation: drives phase 6's Swin-B train step (512^2 b8, drop-path
    0.1) under ``TPU.REMAT`` none, full, dots and high_res, each with its
    launch counts (the attention forward again in every recomputed block
@@ -95,13 +96,15 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    ``REMAT_*_TOL``, and whether the bits matched;
 12. grid search: the port's run CLI over a copy of ``config.yaml`` at 256^2
    on a synthetic split, one epoch a trial, attention dropout 0.05, alpha
-   0.3 / 0.4, lr 8.5e-6 / 3e-5 (5 trials, each the port's train CLI in its
+   0.3 / 0.4, lr 8.5e-6 (4 trials, each the port's train CLI in its
    own process on the card): every trial's numeric ``Score``, the ``BEST:``
-   line, ``config.yaml`` unchanged;
+   line, ``config.yaml`` unchanged, and the trials' decodes (their
+   ``epoch_timing`` lines) native only;
 13. the parity tool at PARITY.md r5's setting (512^2, 15 epochs, both arms;
    launch counts zeroed before each arm: none in the parity arm, the
    kernels in the deploy arm) with its deltas beside r5's, then the epoch
-   bench at 512^2 batch 8 over a synthetic 32 + 32 split (its JSON line);
+   bench at 512^2 batch 8 over a synthetic 32 + 32 split (its JSON line),
+   every decode native;
 14. data parallelism on the one card (run before 9): (a) phase 6's step
    through ``DistributedDataParallel`` in a one-rank NCCL group beside the
    plain step from the same weights: launch counts equal to phase 6's,
@@ -131,6 +134,21 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    within ``SHARD_LOSS_TOL``, parameters within Adam's bound of 2 x lr x
    steps with at most 1e-3 of them beyond 1e-5; then each rank's ms/step
    (CUDA events), device time of one step (profiler) and peak memory;
+16. the native decoder (``native/``; run before 9) over a synthetic split
+   at ``config.yaml``'s 1024^2 (16 fake and 12 real train images with their
+   masks): (a) every file decoded natively and by PIL, equal in bits, then
+   ms per image and per mask of wall time for each decoder on one thread
+   and on ``DATA.NUM_WORKERS`` threads, in turns, beside the files' mean
+   size; (b) one epoch of ``TrainLoader.epoch_batches_merged`` as the
+   trainer builds it (1024^2 b2) with ``SSA_TPU_NATIVE_DECODE`` unset, 0, 0
+   and unset: the arms' batches equal in bits, seconds a batch, each arm's
+   decodes all native or all PIL; (c) the epoch bench at 1024^2 b2
+   (``--merge 1``) in each arm: its JSON line (img/s, ``host_efficiency``,
+   loader wait a step, ``native_decode``) and launches equal to phase 6's
+   counts a step times its steps; (d) the LR range test (bench.py's step at
+   1024^2 b2, 20 steps, lr 1e-7 to 1e-3, plot off) over the loader's
+   batches: finite losses, 20 CSV rows, rising lrs, phase 6's launches a
+   step, every decode native;
 9. prints the kernels line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -1304,12 +1322,23 @@ def read_csv(path: str) -> list:
         return list(csv.reader(f))
 
 
+def check_decodes(native, label: str) -> dict:
+    """Every image decode since ``native.reset_decodes()`` went through the
+    native decoder, none through PIL."""
+    counts = dict(native.DECODES)
+    print(f"{label}: image decodes {counts}")
+    if counts["pil"] != 0 or counts["native"] <= 0:
+        raise AssertionError(f"{label}: decodes {counts}, want native ones only")
+    return counts
+
+
 def training_run(build, card: str) -> None:
     """Phase 10: the train CLI, the test CLI and the predict CLI over a
     synthetic 1024^2 split, then the literal-config step timed on its own."""
     import os
     import shutil
 
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch import native
     from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.cli import (
         predict_cli,
         test_cli,
@@ -1365,6 +1394,7 @@ def training_run(build, card: str) -> None:
               f"drop_path {cfg.MODEL.DROP_PATH_RATE} epochs {cfg.TRAIN.MAX_EPOCHS}")
 
         # -- the train CLI: the main path, counts zeroed just before --
+        native.reset_decodes()
         build.reset_launches()
         t0 = time.perf_counter()
         _, text = run_captured(train_cli.main, ["--cfg", cfg_path])
@@ -1401,7 +1431,7 @@ def training_run(build, card: str) -> None:
                   f"({1e3 * t['train_s'] / t['steps']:.1f} ms/step, host clock), loader "
                   f"wait {1e3 * t['loader_wait_s'] / t['steps']:.2f} ms/step; validation "
                   f"{1e3 * t['val_s'] / t['val_cases']:.1f} ms/case over {t['val_cases']} "
-                  f"cases; {card}")
+                  f"cases; decodes {t['decodes']}; {card}")
 
         payload = load_checkpoint(os.path.join(out, "best_model.pth"))
         model = MSUNet.from_config(cfg)
@@ -1444,6 +1474,7 @@ def training_run(build, card: str) -> None:
         pngs = [n for n in os.listdir(pred_dir) if n.endswith(".png")]
         if len(preds) != n_val or len(pngs) != 4 * n_val:
             raise AssertionError(f"predict CLI: {len(preds)} cases, {len(pngs)} files")
+        check_decodes(native, "train, test and predict CLIs")
 
         # -- the literal-config step and an eval forward, timed on their own --
         loader = TrainLoader(SegArtifactDataset(data, cfg.LIST_DIR, "fake_train"),
@@ -1515,6 +1546,7 @@ def training_run(build, card: str) -> None:
 # stages, cent decoder 1's 256 stage).  Every other count is the step's own:
 # the patch ops and the head are outside the blocks and never recomputed.
 REMAT_ATTN_FWD = {"none": 52, "full": 100, "dots": 100, "high_res": 62}
+REMAT_TIMED = 5  # timed steps a policy (phase 6 times ten)
 # f32, a policy against none from the same weights and noise: the recompute
 # replays the forward's kernels and masks, so only library reductions that
 # are not deterministic (cuDNN weight gradients) may reorder a sum
@@ -1583,7 +1615,7 @@ def recomputation(train_args, build, rng, card: str) -> None:
             train_args, build, rng, {"TPU.REMAT": policy}, expect(
                 build, window_attention=attn, window_attention_bwd=48, patch_merge=3,
                 patch_merge_bwd=3, patch_expand=6, patch_expand_bwd=6, refine_head_res=1,
-                refine_head_bwd=1), f"Swin-B REMAT {policy}")
+                refine_head_bwd=1), f"Swin-B REMAT {policy}", n_timed=REMAT_TIMED)
         rows[policy] = stats
         torch.cuda.empty_cache()
     print(f"memory policies, Swin-B train 512^2 b{B} bf16, every knob on ({card}):")
@@ -1614,11 +1646,12 @@ def recomputation(train_args, build, rng, card: str) -> None:
 
 
 # phase 12: the run CLI's three sweeps over a copy of config.yaml at 256^2,
-# one epoch a trial, on a synthetic split: 1 + 2 + 2 trials
+# one epoch a trial, on a synthetic split: 1 + 2 + 1 trials (one lr: the
+# sweep's ranking is shown by alpha's two, and a trial costs ~25 s)
 GRID_IMG = 256
 GRID_SPLIT = dict(n_fake_train=4, n_real_train=2, n_val_fake=1, n_val_real=1,
                   n_test_fake=0, n_test_real=0)
-GRID_ARGS = ["--attn_drop", "0.05", "--alpha", "0.3", "0.4", "--lr", "8.5e-6", "3e-5"]
+GRID_ARGS = ["--attn_drop", "0.05", "--alpha", "0.3", "0.4", "--lr", "8.5e-6"]
 
 
 def grid_search(card: str) -> None:
@@ -1664,18 +1697,29 @@ def grid_search(card: str) -> None:
         csvs = sorted(os.path.join(d, n) for d, _, files in os.walk(out) for n in files
                       if n == "val_metric_all_epoch.csv")
         scores = []
+        decodes = {"native": 0, "pil": 0}
         for path in csvs:
             rows = read_csv(path)
             score = float(rows[-1][rows[0].index("Score")])
             if len(rows) != 2 or not math.isfinite(score):
                 raise AssertionError(f"{path}: rows {rows}")
             scores.append((os.path.relpath(os.path.dirname(path), out), score))
+            # a trial is a process of its own: its log counts its decodes
+            with open(os.path.join(os.path.dirname(path), "log.txt")) as f:
+                for line in f:
+                    if "epoch_timing " in line:
+                        for k, v in json.loads(line.split("epoch_timing ", 1)[1])[
+                                "decodes"].items():
+                            decodes[k] += v
         best_line = [ln for ln in text.splitlines() if ln.startswith("BEST:")]
         print(f"run CLI: {len(csvs)} trials through the port's train CLI in {wall:.1f} s "
               f"({wall / max(1, len(csvs)):.1f} s a trial, {GRID_IMG}^2, 1 epoch; {card}); "
               f"Score by trial {scores}; {best_line}")
-        if len(csvs) != 5 or len(best_line) != 1:
+        if len(csvs) != 4 or len(best_line) != 1:
             raise AssertionError(f"run CLI: {len(csvs)} trials, BEST lines {best_line}")
+        print(f"run CLI trials' image decodes (their epoch_timing lines): {decodes}")
+        if decodes["pil"] != 0 or decodes["native"] <= 0:
+            raise AssertionError(f"run CLI trials: decodes {decodes}, want native ones only")
         with open(shipped, "rb") as f:
             if hashlib.sha256(f.read()).hexdigest() != digest:
                 raise AssertionError("the run CLI changed config.yaml")
@@ -1722,6 +1766,7 @@ def parity_and_epoch_bench(build, card: str) -> None:
     from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.data.synthetic import (
         generate_synthetic_dataset,
     )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch import native
     from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools import (
         epoch_bench,
         parity_vs_deploy,
@@ -1731,6 +1776,7 @@ def parity_and_epoch_bench(build, card: str) -> None:
     run_dir = os.path.join(root, "model_out", "chip_smoke_phase13")
     shutil.rmtree(run_dir, ignore_errors=True)
     os.makedirs(run_dir)
+    native.reset_decodes()
     try:
         data = os.path.join(run_dir, "data")
         generate_synthetic_dataset(data, img_size=PARITY_IMG, **parity_vs_deploy.SPLIT)
@@ -1774,9 +1820,10 @@ def parity_and_epoch_bench(build, card: str) -> None:
                                                                         bench_data])
         keys = {"metric", "value", "unit", "compute_only", "host_efficiency",
                 "native_decode", "batch"}
-        if not keys <= set(result) or not result["value"] > 0:
+        if not keys <= set(result) or not result["value"] > 0 or not result["native_decode"]:
             raise AssertionError(f"epoch bench line {result}")
         print(f"epoch bench: {json.dumps(result)}; {card}")
+        check_decodes(native, "parity tool and epoch bench")
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
 
@@ -2099,6 +2146,218 @@ def tensor_and_spatial(train_args, rng, card: str, device: str = "cuda:0") -> No
         shutil.rmtree(run_dir, ignore_errors=True)
 
 
+# phase 16: the native decoder under the loaders at config.yaml's 1024^2.
+# 16 fake and 12 real train images: the loader's real ratio of 0.4 draws 10
+# real images an epoch beside 16 fake (8 real would be too few, and it
+# raises), so an epoch is 26 images, 13 batches of 2
+DECODE_SPLIT = dict(n_fake_train=16, n_real_train=12, n_val_fake=0, n_val_real=0,
+                    n_test_fake=0, n_test_real=0)
+DECODE_REPS = 3  # (a) timed passes of each decoder and thread count, in turns
+# (d) the LR range test: 20 steps at b2 over the split's 1024^2 images (the
+# loader takes images at the model's size only), the lr swept log-uniformly
+# to 10x the largest lr the grid search tries, where the loss stays finite
+LR_RANGE_STEPS, LR_RANGE_MIN, LR_RANGE_MAX = 20, 1e-7, 1e-3
+
+
+@contextlib.contextmanager
+def decode_switch(native, on: bool):
+    """``SSA_TPU_NATIVE_DECODE`` for the block: unset (native) or 0 (PIL)."""
+    old = os.environ.pop(native.SWITCH, None)
+    if not on:
+        os.environ[native.SWITCH] = "0"
+    try:
+        yield
+    finally:
+        os.environ.pop(native.SWITCH, None)
+        if old is not None:
+            os.environ[native.SWITCH] = old
+
+
+def decode_rates(native, files, workers: int, size: int, card: str) -> None:
+    """16 (a): every file decoded natively and by PIL, equal in bits; then
+    ms of wall time a file for each decoder on one thread and on
+    ``workers``, in turns."""
+    import concurrent.futures as cf
+
+    for path, gray in files:
+        if not np.array_equal(native.decode_image(path, gray=gray),
+                              native.decode_pil(path, gray)):
+            raise AssertionError(f"native and PIL decodes of {path} differ")
+    n_img = sum(not gray for _, gray in files)
+    print(f"native and PIL decodes equal in bits: {n_img} images and "
+          f"{len(files) - n_img} masks at {size}^2")
+    decoders = {"native": lambda f: native.decode_image(f[0], gray=f[1]),
+                "PIL": lambda f: native.decode_pil(f[0], f[1])}
+    with cf.ThreadPoolExecutor(workers) as pool:
+        for kind, gray in (("image", False), ("mask", True)):
+            group = [f for f in files if f[1] == gray]
+            mean_bytes = np.mean([os.path.getsize(p) for p, _ in group])
+            times = {(name, t): [] for t in (1, workers) for name in decoders}
+            for rep in range(DECODE_REPS):
+                order = list(decoders) if rep % 2 == 0 else list(decoders)[::-1]
+                for threads in (1, workers):
+                    for name in order:
+                        t0 = time.perf_counter()
+                        if threads == 1:
+                            for f in group:
+                                decoders[name](f)
+                        else:
+                            list(pool.map(decoders[name], group))
+                        times[(name, threads)].append(
+                            1e3 * (time.perf_counter() - t0) / len(group))
+            for (name, threads), ms in times.items():
+                print(f"  {kind} decode, {name} on {threads} thread(s): "
+                      f"{np.median(ms):.3f} ms per {kind} of wall time (median of "
+                      f"{DECODE_REPS}: {', '.join(f'{x:.3f}' for x in ms)}); {len(group)} "
+                      f"files of {mean_bytes:.0f} bytes on average; {card}")
+
+
+def loader_arms(native, loader, size: int, card: str) -> None:
+    """16 (b): one epoch of the train loader's batches with the switch on,
+    off, off and on; every arm's batches equal in bits, seconds a batch."""
+    first = None
+    for on in (True, False, False, True):
+        with decode_switch(native, on):
+            native.reset_decodes()
+            t0 = time.perf_counter()
+            batches = list(loader.epoch_batches_merged(0, 1))
+            wall = time.perf_counter() - t0
+            counts = dict(native.DECODES)
+        n = len(batches)
+        want = {"native": 4 * n, "pil": 0} if on else {"native": 0, "pil": 4 * n}
+        print(f"  loader, switch {'on' if on else 'off'}: {n} batches of 2 at {size}^2 in "
+              f"{wall:.3f} s, {wall / n:.4f} s a batch (host clock, nothing consuming); "
+              f"decodes {counts}; {card}")
+        if counts != want or n == 0:
+            raise AssertionError(f"loader arm: {n} batches, decodes {counts} != {want}")
+        if first is None:
+            first = batches
+            continue
+        for got, ref in zip(batches, first):
+            for key in ("image", "label"):
+                if not np.array_equal(got[key], ref[key]):
+                    raise AssertionError(f"loader arms differ in {key} of {got['case_name']}")
+        if len(batches) != len(first):
+            raise AssertionError(f"loader arms: {len(batches)} != {len(first)} batches")
+    print("loader arms' batches equal in bits")
+
+
+def native_decode(train_args, build, card: str, per_step: dict) -> None:
+    """Phase 16: the native decoder on a synthetic 1024^2 split: (a) the decode
+    rate alone, (b) the train loader alone, (c) the epoch bench at 1024^2 b2
+    in each arm, (d) the LR range test over the loader at 1024^2 b2."""
+    import shutil
+
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch import native
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.core.config import (
+        load_config,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.data.dataset import (
+        SegArtifactDataset,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.data.pipeline import (
+        TrainLoader,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.data.synthetic import (
+        generate_synthetic_dataset,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools import epoch_bench
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train.lr_range import (
+        lr_range_test,
+    )
+
+    default_config, MSUNet, create_train_state, make_train_step = train_args
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, "config.yaml"))
+    workers = int(cfg.DATA.NUM_WORKERS)
+    run_dir = os.path.join(root, "model_out", "chip_smoke_phase16")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    try:
+        t0 = time.perf_counter()
+        native.library()
+        print(f"native decoder: built and loaded in {time.perf_counter() - t0:.2f} s "
+              f"(g++, decode.cpp; PNG inflate by Python's zlib)")
+        data = os.path.join(run_dir, "data")
+        lists = os.path.join(data, "lists")
+        t0 = time.perf_counter()
+        generate_synthetic_dataset(data, img_size=cfg.DATA.IMG_SIZE, seed=0, **DECODE_SPLIT)
+        print(f"synthetic split {cfg.DATA.IMG_SIZE}^2 ({DECODE_SPLIT}): "
+              f"{time.perf_counter() - t0:.1f} s")
+        files = [(os.path.join(data, sub, name), sub.endswith("labels"))
+                 for sub in ("fake_images", "real_images", "fake_labels", "real_labels")
+                 for name in sorted(os.listdir(os.path.join(data, sub)))]
+
+        # (a) the decode rate alone
+        decode_rates(native, files, workers, int(cfg.DATA.IMG_SIZE), card)
+
+        # (b) the loader alone, as the trainer builds it from config.yaml
+        def make_loader():
+            return TrainLoader(SegArtifactDataset(data, lists, "fake_train"),
+                               SegArtifactDataset(data, lists, "real_train_all"),
+                               img_size=int(cfg.DATA.IMG_SIZE), seed=int(cfg.SEED),
+                               dynamic_loader=bool(cfg.DYNAMIC_LOADER), num_workers=workers,
+                               prefetch_depth=int(cfg.TPU.PREFETCH_DEPTH))
+
+        loader_arms(native, make_loader(), int(cfg.DATA.IMG_SIZE), card)
+
+        # (c) the epoch bench at 1024^2 b2 in each arm
+        for on in (True, False):
+            with decode_switch(native, on):
+                native.reset_decodes()
+                build.reset_launches()
+                result, _ = run_captured(epoch_bench.main, [
+                    "--img", str(cfg.DATA.IMG_SIZE), "--merge", "1", "--workers",
+                    str(workers), "--data_dir", data])
+                launches = dict(build.LAUNCHES)
+                counts = dict(native.DECODES)
+            want = {k: result["steps"] * v for k, v in per_step.items()}
+            arm = "native" if on else "PIL"
+            print(f"epoch bench {cfg.DATA.IMG_SIZE}^2 b2, {arm} arm: {result['value']} img/s, "
+                  f"host_efficiency {result['host_efficiency']}, loader wait "
+                  f"{result['loader_wait_ms_per_step']} ms a step, native_decode "
+                  f"{result['native_decode']}; {result['steps']} steps, launches {launches}; "
+                  f"decodes {counts}; {card}")
+            if launches != want:
+                raise AssertionError(f"epoch bench launches {launches} != {want}")
+            if result["native_decode"] is not on or counts["pil" if on else "native"] != 0:
+                raise AssertionError(f"epoch bench {arm} arm: {result}, decodes {counts}")
+            torch.cuda.empty_cache()
+
+        # (d) the LR range test over the loader, bench.py's step at 1024^2 b2
+        lr_cfg = deployment_config(default_config, **TRAIN_CHANGES,
+                                   **{"DATA.IMG_SIZE": int(cfg.DATA.IMG_SIZE)})
+        model = MSUNet.from_config(lr_cfg)
+        state = create_train_state(model, lr_cfg)
+        step = make_train_step(model, 0.2, 0.8, 0.45)
+        native.reset_decodes()
+        batches = list(make_loader().epoch_batches(0))
+        out_dir = os.path.join(run_dir, "lr_range")
+        build.reset_launches()
+        t0 = time.perf_counter()
+        lrs, losses = lr_range_test(state, step, batches, out_dir, min_lr=LR_RANGE_MIN,
+                                    max_lr=LR_RANGE_MAX, n_steps=LR_RANGE_STEPS, plot=False)
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        rows = read_csv(os.path.join(out_dir, "lr_range_test.csv"))[1:]
+        print(f"LR range test {lr_cfg.DATA.IMG_SIZE}^2 b2, {LR_RANGE_STEPS} steps over "
+              f"{len(batches)} loader "
+              f"batches in {wall:.2f} s: lr {lrs[0]:.3g} -> {lrs[-1]:.3g}, loss "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; launches {launches}; {card}")
+        want = {k: LR_RANGE_STEPS * v for k, v in per_step.items()}
+        if (len(losses) != LR_RANGE_STEPS or len(rows) != LR_RANGE_STEPS
+                or not all(math.isfinite(x) for x in losses)
+                or not all(a < b for a, b in zip(lrs, lrs[1:]))
+                or not math.isclose(lrs[0], LR_RANGE_MIN, rel_tol=1e-9)
+                or not math.isclose(lrs[-1], LR_RANGE_MAX, rel_tol=1e-9) or launches != want):
+            raise AssertionError(f"LR range test: lrs {lrs}, losses {losses}, {len(rows)} CSV "
+                                 f"rows, launches {launches} != {want}")
+        check_decodes(native, "LR range test's loader")
+        del state, step, model
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
 @contextlib.contextmanager
 def phase(n: int, name: str):
     """Run one phase of the smoke; on any error say which on stdout and
@@ -2311,6 +2570,12 @@ def main() -> int:
         t0 = time.perf_counter()
         tensor_and_spatial(train_args, rng, card)
         print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+    with phase(16, "native decode"):
+        t0 = time.perf_counter()
+        native_decode(train_args, _build, card, phase6_launches)
+        print(f"phase 16: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
     with phase(9, "report"):

@@ -5,8 +5,11 @@
 A split file ``<list_dir>/<split>.txt`` lists basenames; each resolves to
 ``real_images/<id>.png`` or ``fake_images/<id>.png`` with a matching
 ``{real,fake}_labels/<id>_mask.png`` (missing files raise), loaded as RGB /
-L.  Fake StyleGAN2 ids start with "09".  Images decode with PIL, imported
-where a file is read.
+L.  Fake StyleGAN2 ids start with "09".  Images decode with the port's
+native decoder (``native/``, with the GIL released) unless the user
+switched it off (``SSA_TPU_NATIVE_DECODE=0``); a file it does not take
+(JPEG, 16-bit, sub-byte, interlaced) decodes with PIL, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -16,21 +19,26 @@ from typing import Dict, List
 
 import numpy as np
 
+from .. import native
+
+
+def _load(path: str, gray: bool) -> np.ndarray:
+    if native.enabled():
+        try:
+            return native.decode_image(path, gray=gray)
+        except ValueError:
+            pass  # an encoding the native decoder does not take: PIL's long tail
+    return native.decode_pil(path, gray)
+
 
 def load_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8."""
-    from PIL import Image
-
-    with Image.open(path) as img:
-        return np.asarray(img.convert("RGB"), dtype=np.uint8)
+    """(H, W, 3) uint8, PIL's ``convert("RGB")`` bytes."""
+    return _load(path, gray=False)
 
 
 def load_gray(path: str) -> np.ndarray:
     """(H, W) uint8 luma with PIL ``convert("L")`` rounding."""
-    from PIL import Image
-
-    with Image.open(path) as img:
-        return np.asarray(img.convert("L"), dtype=np.uint8)
+    return _load(path, gray=True)
 
 
 def read_split_list(list_dir: str, split: str) -> List[str]:

@@ -8,9 +8,10 @@ Measures wall to wall what the reference's hot loop does (reference
 ``config.yaml``'s Swin-B with every kernel knob on.  Prints one JSON line
 with the epoch's images/sec, the compute-only rate of the same step on a
 resident batch, their ratio (``host_efficiency < 1`` shows pipeline
-stalls), the host seconds a step waited for the loader, and the device.
-Host clocks are read after a device sync.  The JAX package's native PNG
-decoder is not ported (``native_decode`` is false).
+stalls), the host seconds a step waited for the loader, whether the loader
+decoded natively (``native_decode``: ``native/``, off under
+``SSA_TPU_NATIVE_DECODE=0``), the train steps run in all, and the device.
+Host clocks are read after a device sync.
 
 Usage::
 
@@ -55,6 +56,7 @@ def main(argv=None) -> dict:
     from ..models.msunet import MSUNet
     from ..train.state import create_train_state, make_train_step
     from ..train.trainer import prefetch_to_device
+    from .. import native
 
     args = build_arg_parser().parse_args(argv)
     dev = resolve_device(args.device)
@@ -76,6 +78,7 @@ def main(argv=None) -> dict:
     loader = TrainLoader(SegArtifactDataset(root, lists, "fake_train"),
                          SegArtifactDataset(root, lists, "real_train_all"),
                          img_size=args.img, seed=0, num_workers=args.workers)
+    print(f"native decode: {native.available()}", file=sys.stderr)
 
     model = MSUNet(img_size=args.img, embed_dim=128, depths=(2, 2, 18, 2),
                    num_heads=(4, 8, 16, 32), window_size=7, dtype=torch.bfloat16,
@@ -94,6 +97,7 @@ def main(argv=None) -> dict:
     batch_size = 2 * args.merge
     epoch_rate = None
     wait_ms = None
+    total_steps = 0
     for epoch in range(args.epochs):
         t0 = time.time()
         n_img = n_steps = 0
@@ -105,6 +109,7 @@ def main(argv=None) -> dict:
             loss = step(state, image, label, lr)
             n_img += image.shape[0]
             n_steps += 1
+        total_steps += n_steps
         final = float(loss)  # hard host sync
         sync()
         dt = time.time() - t0
@@ -121,17 +126,18 @@ def main(argv=None) -> dict:
                           device=dev)
     lbl_dev = torch.zeros((batch_size, args.img, args.img), dtype=torch.uint8,
                           device=dev)
-    for _ in range(3):
+    warm, iters = 3, 20
+    for _ in range(warm):
         loss = step(state, img_dev, lbl_dev, lr)
     float(loss)
     sync()
     t0 = time.time()
-    iters = 20
     for _ in range(iters):
         loss = step(state, img_dev, lbl_dev, lr)
     float(loss)
     sync()
     compute_rate = batch_size / ((time.time() - t0) / iters)
+    total_steps += warm + iters
 
     result = {
         "metric": f"epoch_e2e_{args.img}sq_throughput",
@@ -139,8 +145,9 @@ def main(argv=None) -> dict:
         "unit": "images/sec",
         "compute_only": round(compute_rate, 3),
         "host_efficiency": round(epoch_rate / compute_rate, 3),
-        "native_decode": False,
+        "native_decode": native.available(),
         "batch": batch_size,
+        "steps": total_steps,
         "loader_wait_ms_per_step": round(wait_ms, 3),
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }

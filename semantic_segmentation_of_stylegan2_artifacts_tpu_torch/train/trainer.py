@@ -17,8 +17,9 @@ Input batches are copied to the device from pinned host memory with
 of the trainer: there is no fallback to the composed path.
 
 Each epoch logs one ``epoch_timing {json}`` line: the epoch's host seconds,
-the host seconds the steps waited for the train loader, the steps, and the
-validation's seconds and cases.
+the host seconds the steps waited for the train loader, the steps, the
+validation's seconds and cases, and this process's image decodes of the
+epoch, native and PIL (``native.DECODES``).
 
 Data parallelism (JAX ``train/trainer.py``'s mesh): ``HARDWARE.N_GPU``
 sampler pairs make one global batch a step.  When a process group is up
@@ -44,6 +45,7 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..data.dataset import SegArtifactDataset
 from ..data.pipeline import EvalLoader, TrainLoader
 from ..metrics.csv_logger import CSVHandler
@@ -332,6 +334,7 @@ def trainer(model, logger, writer, log_save_path: str = "", config=None,
             unfreeze_in_next_epoch = False
             lr = schedule.lr_at_epoch(epoch_num)
             t0 = time.perf_counter()
+            decodes = dict(native.DECODES)
             loader_wait = [0.0]
             n_batches = 0
             pending: deque = deque()
@@ -372,7 +375,8 @@ def trainer(model, logger, writer, log_save_path: str = "", config=None,
                 logger.info("epoch_timing " + json.dumps({
                     "epoch": epoch_num + 1, "train_s": epoch_time, "steps": n_batches,
                     "loader_wait_s": loader_wait[0], "val_s": time.perf_counter() - t0,
-                    "val_cases": len(valloader)}))
+                    "val_cases": len(valloader),
+                    "decodes": {k: v - decodes[k] for k, v in native.DECODES.items()}}))
             else:
                 output_dict, score = [], float("nan")
             if distributed:

@@ -130,6 +130,8 @@ import sys, numpy as np, torch
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.cli import (
     predict_cli, run_cli, test_cli, train_cli)
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.core import yaml_editor
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch import native
+assert native.available()
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools import (
     ckpt_inspect, dataset_check, dp_check, epoch_bench, parity_vs_deploy)
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train import (

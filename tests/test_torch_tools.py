@@ -37,6 +37,7 @@ from semantic_segmentation_of_stylegan2_artifacts_tpu.train.lr_range import (
 from semantic_segmentation_of_stylegan2_artifacts_tpu.train.state import (
     make_train_step as jax_make_train_step,
 )
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch import native
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.core.config import default_config
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.data.synthetic import (
     generate_synthetic_dataset,
@@ -177,5 +178,5 @@ def test_epoch_bench_prints_the_jax_keys(tmp_path, capsys):
     assert line == result
     assert BENCH_KEYS <= set(line)
     assert line["metric"] == "epoch_e2e_32sq_throughput" and line["batch"] == 2
-    assert line["native_decode"] is False and line["device"] == "cpu"
+    assert line["native_decode"] is native.available() and line["device"] == "cpu"
     assert line["value"] > 0 and line["compute_only"] > 0

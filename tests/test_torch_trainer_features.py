@@ -13,7 +13,8 @@ depths 1/1/1/1, window 4, float32, the kernel knobs off).
   run; ``TPU.CKPT_BACKEND: orbax`` raises.
 * The train and test CLIs on ``--device cpu`` write ``config_used.yaml`` (a
   byte copy of ``--cfg``),
-  ``log.txt``, the 7 CSVs and the checkpoint under the JAX CLIs' file names
+  ``log.txt`` (each ``epoch_timing`` line counting native decodes and none
+  by PIL), the 7 CSVs and the checkpoint under the JAX CLIs' file names
   (``.pth`` for ``.msgpack``); without CUDA and without ``--device`` they
   raise; the test CLI's ``--tile`` evaluates 48^2 images through a 32^2
   model.
@@ -23,6 +24,7 @@ depths 1/1/1/1, window 4, float32, the kernel knobs off).
 
 import csv
 import itertools
+import json
 import logging
 import os
 
@@ -279,6 +281,12 @@ def test_train_and_test_clis_write_the_jax_file_names(tmp_path, data, monkeypatc
                  "test/log.txt", "test/config_used.yaml"):
         assert name in got, name
     assert sum(n.startswith("test/predictions/") for n in got) == 3 * 5
+    # each epoch_timing line counts the epoch's decodes: all native
+    with open(os.path.join(out["port"], "log.txt")) as f:
+        timing = [json.loads(ln.split("epoch_timing ", 1)[1]) for ln in f
+                  if "epoch_timing " in ln]
+    assert timing and all(t["decodes"]["native"] > 0 and t["decodes"]["pil"] == 0
+                          for t in timing), timing
     assert load_config(os.path.join(out["port"], "config_used.yaml")) == \
         load_config(_config(tmp_path / "port", data))
     # both CLIs copy --cfg byte for byte, as JAX cli/train_cli.py and
