@@ -93,7 +93,11 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    ``none`` from the same weights and noise (512^2 b2, drop-path on), and
    ``config.yaml``'s own noise at 1024^2 b2 under the ``high_res`` its
    ``auto`` resolves to against ``none``: loss and every gradient within
-   ``REMAT_*_TOL``, and whether the bits matched;
+   ``REMAT_*_TOL``, and whether the bits matched; and bench.py's step at
+   ``config.yaml``'s 1024^2 b2 under ``dots`` (JAX's choice there) and
+   ``none`` from the same weights, batch and noise: launches, ms/step,
+   device time, busy share, peak memory, the loss after one update within
+   ``REMAT_LOSS_TOL``;
 12. grid search: the port's run CLI over a copy of ``config.yaml`` at 256^2
    on a synthetic split, one epoch a trial, attention dropout 0.05, alpha
    0.3 / 0.4, lr 8.5e-6 (4 trials, each the port's train CLI in its
@@ -149,6 +153,18 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    1024^2 b2, 20 steps, lr 1e-7 to 1e-3, plot off) over the loader's
    batches: finite losses, 20 CSV rows, rising lrs, phase 6's launches a
    step, every decode native;
+17. orbax checkpoints (run before 9): (a) the fixture under the port's
+   ``train/testdata/jax_orbax`` (written by the JAX package's orbax
+   backend: zstd OCDBT nodes and chunks) read by the port, every leaf equal
+   in bits to its ``values.npz``, and the zstd decoder's MB/s over its
+   frames; (b) ``config.yaml``'s Swin-B at 512^2 b2 with drop rates 0, two
+   steps with phase 6's launches a step, ``save_best`` and ``save_last``
+   through the asynchronous orbax writer (sizes, submit and write
+   seconds), both read back in bits (read seconds), one step after
+   resuming from ``epoch_1.orbax`` equal in bits (loss and parameters,
+   cuDNN deterministic) to the step without the save, and the test CLI's
+   Score on the orbax directory against a ``.pth`` of the same weights (to
+   1e-6), each run with its launches;
 9. prints the kernels line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -1153,27 +1169,31 @@ def expect(build, **counts) -> dict:
     return {k: counts.get(k, 0) for k in build.LAUNCHES}
 
 
-def train_batch(rng, batch):
-    images = rng.integers(0, 256, (batch, IMG, IMG, 3), dtype=np.uint8)
-    labels = (rng.random((batch, IMG, IMG)) > 0.8).astype(np.uint8)
+def train_batch(rng, batch, img=IMG):
+    images = rng.integers(0, 256, (batch, img, img, 3), dtype=np.uint8)
+    labels = (rng.random((batch, img, img)) > 0.8).astype(np.uint8)
     return images, labels
 
 
-def run_train_step(train_args, build, rng, changes, want, label, n_timed=10) -> tuple:
-    """A train step of the configuration ``changes`` at 512^2 batch 8: its
-    launch counts against ``want``, ``n_timed`` timed steps on one batch
-    (the loss must fall), a profile of one; returns the launches and the
-    step's ms (CUDA events), device ms (profiler) and peak GiB."""
+def run_train_step(train_args, build, rng, changes, want, label, n_timed=10, batch=B,
+                   img=IMG) -> tuple:
+    """A train step of the configuration ``changes`` at ``img``^2 (512)
+    batch ``batch`` (8): its launch counts against ``want``, ``n_timed``
+    timed steps on one batch (the loss must fall), a profile of one;
+    returns the launches and the step's ms (CUDA events), device ms
+    (profiler), peak GiB and the losses of the launch-count step (the
+    second) and the timed ones."""
     default_config, MSUNet, create_train_state, make_train_step = train_args
-    cfg = deployment_config(default_config, **TRAIN_CHANGES, **changes)
+    cfg = deployment_config(default_config, **TRAIN_CHANGES, **changes,
+                            **{"DATA.IMG_SIZE": img})
     model = MSUNet.from_config(cfg)
     state = create_train_state(model, cfg)
     step = make_train_step(model, 0.2, 0.8, 0.45)
-    images, labels = train_batch(rng, B)
+    images, labels = train_batch(rng, batch, img)
     step(state, images, labels, 1e-4)  # warm-up: allocator, cuDNN
     torch.cuda.synchronize()
     build.reset_launches()
-    step(state, images, labels, 1e-4)
+    second = step(state, images, labels, 1e-4).item()
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     print(f"{label} train launches per step: {launches}")
@@ -1192,16 +1212,17 @@ def run_train_step(train_args, build, rng, changes, want, label, n_timed=10) -> 
     losses = [x.item() for x in losses]
     step_ms = start.elapsed_time(end) / n_timed
     peak = torch.cuda.max_memory_allocated() / 2**30
-    mfu = step_mfu(cfg, B, step_ms, sum(p.numel() for p in model.parameters()))
-    print(f"{label} train 512^2 b{B} bf16: {step_ms:.2f} ms/step (CUDA events), "
-          f"{B * n_timed / wall:.2f} img/s (host clock, synchronised), MFU {mfu:.4f}, peak "
+    mfu = step_mfu(cfg, batch, step_ms, sum(p.numel() for p in model.parameters()))
+    print(f"{label} train {img}^2 b{batch} bf16: {step_ms:.2f} ms/step (CUDA events), "
+          f"{batch * n_timed / wall:.2f} img/s (host clock, synchronised), MFU {mfu:.4f}, peak "
           f"memory {peak:.2f} GiB; loss {losses[0]:.5f} -> {losses[-1]:.5f} over {n_timed} "
           f"steps")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{label} train losses not finite and falling: {losses}")
     dev_ms = profile_forward(lambda imgs: step(state, imgs, labels, 1e-4), images,
                              step_ms, top=15, what=f"{label} train step")
-    return launches, {"ms": step_ms, "device_ms": dev_ms, "peak_gib": peak}
+    return launches, {"ms": step_ms, "device_ms": dev_ms, "peak_gib": peak,
+                      "losses": [second] + losses}
 
 
 def check_train_e2e(train_args, rng, changes, label):
@@ -1547,6 +1568,10 @@ def training_run(build, card: str) -> None:
 # the patch ops and the head are outside the blocks and never recomputed.
 REMAT_ATTN_FWD = {"none": 52, "full": 100, "dots": 100, "high_res": 62}
 REMAT_TIMED = 5  # timed steps a policy (phase 6 times ten)
+# the same step at config.yaml's 1024^2 b2 under dots (JAX's choice at that
+# size, JAX models/msunet.py:501-524) and none, from the same weights, batch
+# and noise: timed steps an arm
+REMAT_BIG_TIMED = 3
 # f32, a policy against none from the same weights and noise: the recompute
 # replays the forward's kernels and masks, so only library reductions that
 # are not deterministic (cuDNN weight gradients) may reorder a sum
@@ -1593,6 +1618,37 @@ def check_remat_f32(train_args, cfgs: dict, images, labels, label: str) -> None:
         torch.cuda.empty_cache()
 
 
+def remat_at_1024(train_args, build, card: str) -> None:
+    """Phase 11's arm at config.yaml's size: bench.py's step at 1024^2 b2
+    under dots (JAX's choice there) and none, from the same weights, batch
+    and noise: ms/step, device ms, peak GiB, and the loss after one update
+    within REMAT_LOSS_TOL."""
+    big = {}
+    for policy in ("none", "dots"):
+        _, big[policy] = run_train_step(
+            train_args, build, np.random.default_rng(11), {"TPU.REMAT": policy}, expect(
+                build, window_attention=REMAT_ATTN_FWD[policy], window_attention_bwd=48,
+                patch_merge=3, patch_merge_bwd=3, patch_expand=6, patch_expand_bwd=6,
+                refine_head_res=1, refine_head_bwd=1), f"Swin-B 1024^2 REMAT {policy}",
+            n_timed=REMAT_BIG_TIMED, batch=2, img=2 * IMG)
+        torch.cuda.empty_cache()
+    print(f"memory policies at config.yaml's size, Swin-B train 1024^2 b2 bf16, every knob on "
+          f"({card}):")
+    for policy, r in big.items():
+        print(f"  {policy:9s} {r['ms']:8.2f} ms/step (CUDA events)  {r['device_ms']:8.2f} ms "
+              f"device  busy {r['device_ms'] / r['ms']:.3f}  peak {r['peak_gib']:6.2f} GiB  "
+              f"losses {', '.join(f'{x:.8f}' for x in r['losses'])}")
+    # the second step's loss follows one update from the first step's gradients
+    dls = [abs(a - b) for a, b in zip(big["dots"]["losses"], big["none"]["losses"])]
+    print(f"1024^2 b2 bf16, dots vs none from the same weights, batch and noise: loss "
+          f"|diff| {dls[0]:.3e} after one update (tol {REMAT_LOSS_TOL:g}), at most "
+          f"{max(dls):.3e} over {len(dls)} steps; bits "
+          f"{'equal' if big['dots']['losses'] == big['none']['losses'] else 'differ'}")
+    if not dls[0] <= REMAT_LOSS_TOL:
+        raise AssertionError(f"1024^2 b2: dots losses {big['dots']['losses']} != none's "
+                             f"{big['none']['losses']}")
+
+
 def recomputation(train_args, build, rng, card: str) -> None:
     """Phase 11: bench.py's Swin-B step at 512^2 b8 under each policy
     (drop-path 0.1: the stochastic-depth replay on the kernel path), then
@@ -1623,6 +1679,8 @@ def recomputation(train_args, build, rng, card: str) -> None:
         print(f"  {policy:9s} {r['ms']:8.2f} ms/step (CUDA events)  {r['device_ms']:8.2f} ms "
               f"device  busy {r['device_ms'] / r['ms']:.3f}  peak {r['peak_gib']:6.2f} GiB  "
               f"attention launches {REMAT_ATTN_FWD[policy]}/48")
+
+    remat_at_1024(train_args, build, card)
 
     images, labels = train_batch(rng, 2)
     check_remat_f32(train_args, {p: deployment_config(default_config, **TRAIN_CHANGES,
@@ -2358,6 +2416,232 @@ def native_decode(train_args, build, card: str, per_step: dict) -> None:
         shutil.rmtree(run_dir, ignore_errors=True)
 
 
+# phase 17: orbax checkpoints.  (a) the committed fixture, which the JAX
+# package's orbax backend wrote (zstd OCDBT nodes and zstd chunks), against
+# its values.npz; (b) config.yaml's Swin-B at 512^2 b2 with drop rates 0:
+# saves, reads, a resumed step and the test CLI on the orbax directory.
+ORBAX_IMG = 512
+ORBAX_STEPS = 2  # train steps before the saves
+ORBAX_SPLIT = dict(n_fake_train=1, n_real_train=1, n_val_fake=2, n_val_real=1,
+                   n_test_fake=0, n_test_real=0)
+ORBAX_DECODE_REPS = 5
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _as_numpy(v) -> np.ndarray:
+    if torch.is_tensor(v):
+        v = v.detach().cpu()
+        return (v.view(torch.int16) if v.dtype == torch.bfloat16 else v).numpy()
+    return np.asarray(v)
+
+
+def _same_bits(a, b) -> bool:
+    a, b = _as_numpy(a), _as_numpy(b)
+    return a.shape == b.shape and a.dtype.itemsize == b.dtype.itemsize and \
+        a.tobytes() == b.tobytes()
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def orbax_fixture(card: str) -> None:
+    """Phase 17 (a): the JAX-written fixture read by the port, every leaf in
+    bits, and the zstd decoder's rate over the fixture's frames."""
+    import struct
+
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.native import zstd
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train import (
+        checkpoint,
+        ocdbt,
+        orbax,
+    )
+
+    fixture = os.path.join(os.path.dirname(checkpoint.__file__), "testdata", "jax_orbax")
+    with np.load(os.path.join(fixture, "values.npz")) as z:
+        values = {k: z[k] for k in z.files}
+    frames = []
+    for name, prefix in (("best_model.orbax", "best/"), ("epoch_1.orbax", "epoch/")):
+        path = os.path.join(fixture, name)
+        t0 = time.perf_counter()
+        flat = _flat_tree(orbax.restore(path))
+        dt = time.perf_counter() - t0
+        want = {k[len(prefix):]: v for k, v in values.items() if k.startswith(prefix)}
+        bad = sorted(k for k in want if k not in flat or not _same_bits(flat[k], want[k]))
+        if set(flat) != set(want) or bad:
+            raise AssertionError(f"fixture {name}: leaves differ from values.npz: "
+                                 f"{bad[:5]}, extra {sorted(set(flat) - set(want))[:5]}")
+        print(f"fixture {name} (written by the JAX package): {len(want)} leaves equal in "
+              f"bits to values.npz, restored in {dt:.3f} s")
+        store = ocdbt.Store(path)
+        frames += [v.tobytes() for v in map(store.get, store.keys())
+                   if v[:4].tobytes() == zstd.MAGIC]
+        for d, _, files in os.walk(path):
+            for f in files:
+                with open(os.path.join(d, f), "rb") as fh:
+                    head = fh.read(14)
+                    if len(head) == 14 and head[:4] in (b"\x0c\xdb\x3a\x2a", b"\x0c\xdb\x20\xde") \
+                            and head[13] == 1:  # a zstd-compressed manifest or node
+                        length = struct.unpack("<Q", head[4:12])[0]
+                        frames.append(fh.read(length - 18))
+    decoded = sum(len(zstd.decompress(f)) for f in frames)
+    t0 = time.perf_counter()
+    for _ in range(ORBAX_DECODE_REPS):
+        for f in frames:
+            zstd.decompress(f)
+    dt = (time.perf_counter() - t0) / ORBAX_DECODE_REPS
+    packed = sum(len(f) for f in frames)
+    print(f"zstd decoder (native/zstd.cpp, one host thread): {len(frames)} frames of the "
+          f"fixture, {packed} bytes -> {decoded} bytes in {dt * 1e3:.2f} ms: "
+          f"{decoded / dt / 1e6:.1f} MB/s decoded ({packed / dt / 1e6:.1f} MB/s in); {card}")
+
+
+def orbax_checkpoints(train_args, build, card: str, per_step: dict) -> None:
+    """Phase 17: (a) the fixture; (b) config.yaml's Swin-B at 512^2 b2, drop
+    rates 0: ORBAX_STEPS steps (launches ORBAX_STEPS x phase 6's), the
+    asynchronous orbax save_best and save_last read back in bits, one step
+    after resuming from epoch_N.orbax against the step without the save
+    (loss and parameters in bits, cuDNN deterministic), and the test CLI on
+    the orbax directory against a .pth of the same weights (Score to 1e-6)."""
+    import shutil
+
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.cli import test_cli
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.core.config import load_config
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.data.synthetic import (
+        generate_synthetic_dataset,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train import checkpoint, optim
+
+    orbax_fixture(card)
+    _, MSUNet, create_train_state, make_train_step = train_args
+    root = os.path.dirname(os.path.abspath(__file__))
+    run_dir = os.path.join(root, "model_out", "chip_smoke_phase17")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    deterministic = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+                     torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        data = os.path.join(run_dir, "data")
+        generate_synthetic_dataset(data, img_size=ORBAX_IMG, seed=0, **ORBAX_SPLIT)
+        cfg_path = os.path.join(run_dir, "phase17.yaml")
+        with open(cfg_path, "w") as f:
+            f.write(f"BASE: ['{os.path.join(root, 'config.yaml')}']\n"
+                    f"DATA:\n  DATA_PATH: '{data}'\n  IMG_SIZE: {ORBAX_IMG}\n"
+                    f"MODEL:\n  PRETRAIN_WEIGHTS: none\n  DROP_RATE: 0.0\n"
+                    f"  ATTN_DROP_RATE: 0.0\n  DROP_PATH_RATE: 0.0\n"
+                    f"OUTPUT_DIR: '{os.path.join(run_dir, 'train')}'\n"
+                    f"LIST_DIR: '{os.path.join(data, 'lists')}'\n")
+        cfg = load_config(cfg_path)
+        t = cfg.TRAIN
+        loss_args = (float(t.TVERSKY_LOSS_ALPHA), float(t.TVERSKY_LOSS_BETA),
+                     float(t.LOSS_TVERSKY_BCE_MIX))
+        model = MSUNet.from_config(cfg)
+        state = create_train_state(model, cfg)
+        step = make_train_step(model, *loss_args)
+        rng = np.random.default_rng(17)
+        batches = [train_batch(rng, 2, ORBAX_IMG) for _ in range(ORBAX_STEPS + 1)]
+        build.reset_launches()
+        losses = [step(state, *batches[i], 1e-4).item() for i in range(ORBAX_STEPS)]
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        want = {k: ORBAX_STEPS * v for k, v in per_step.items()}
+        print(f"config.yaml Swin-B {ORBAX_IMG}^2 b2, drop rates 0: {ORBAX_STEPS} steps, "
+              f"losses {losses}, launches {launches}")
+        if launches != want or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"phase 17 steps: launches {launches} != {want} or losses "
+                                 f"{losses} not finite")
+
+        # -- the asynchronous orbax saves, then a .pth of the same weights --
+        ckpt_dir, pth_dir = os.path.join(run_dir, "orbax"), os.path.join(run_dir, "pth")
+        writer = checkpoint.CheckpointWriter(backend="orbax", async_=True)
+        t0 = time.perf_counter()
+        best = writer.save_best(ckpt_dir, model, ORBAX_STEPS, 0.5)
+        last = writer.save_last(ckpt_dir, 1, model, state.optimizer, state.step, 0.25)
+        t_submit = time.perf_counter() - t0
+        writer.close()
+        t_write = time.perf_counter() - t0
+        checkpoint.CheckpointWriter().save_best(pth_dir, model, ORBAX_STEPS, 0.5)
+        sizes = {n: _dir_bytes(p) for n, p in (("best_model.orbax", best),
+                                               ("epoch_1.orbax", last))}
+        t0 = time.perf_counter()
+        got_best = checkpoint.load_orbax(best)
+        t_best = time.perf_counter() - t0
+        got_last = checkpoint.load_orbax(last)
+        t_read = time.perf_counter() - t0
+        sd = model.ms_unet.state_dict()
+        bad = [k for k, v in got_best["model"].items() if not _same_bits(v, sd[k])]
+        bad += [k for k, v in got_last["model"].items() if not _same_bits(v, sd[k])]
+        saved_opt = _flat_tree(got_last["optimizer"])
+        live_opt = _flat_tree(optim.to_optax(state.optimizer, model))
+        bad += [k for k in live_opt if k not in saved_opt or not _same_bits(saved_opt[k],
+                                                                              live_opt[k])]
+        params = {n for n, _ in model.ms_unet.named_parameters()}
+        if bad or set(saved_opt) != set(live_opt) or set(got_best["model"]) != params:
+            raise AssertionError(f"orbax read-back differs: {bad[:5]}")
+        print(f"orbax save (async): submit {t_submit:.2f} s (host copies), written "
+              f"{t_write:.2f} s after the first save; best_model.orbax "
+              f"{sizes['best_model.orbax']} bytes, epoch_1.orbax {sizes['epoch_1.orbax']} "
+              f"bytes; read {t_best:.2f} s + {t_read - t_best:.2f} s, "
+              f"{len(got_best['model'])} + {len(live_opt)} tensors equal in bits; {card}")
+
+        # -- one step after resuming from epoch_1.orbax against the step
+        # without the save --
+        resumed = MSUNet.from_config(cfg)
+        resumed.ms_unet.load_state_dict(got_last["model"], strict=True)
+        state2 = create_train_state(resumed, cfg)
+        optim.load_optax(state2.optimizer, resumed, got_last["optimizer"], last)
+        state2.step = int(got_last["iter_num"])
+        step2 = make_train_step(resumed, *loss_args)
+        build.reset_launches()
+        l_live = step(state, *batches[-1], 1e-4).item()
+        l_resumed = step2(state2, *batches[-1], 1e-4).item()
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        diffs = {n: (p - q).abs().max().item() for (n, p), q in zip(
+            model.named_parameters(), resumed.parameters()) if not torch.equal(p, q)}
+        print(f"step {ORBAX_STEPS + 1}: without the save loss {l_live!r}, resumed from "
+              f"epoch_1.orbax loss {l_resumed!r}; parameters differing in bits: "
+              f"{len(diffs)} {sorted(diffs.items(), key=lambda kv: -kv[1])[:3]}; "
+              f"launches {launches}")
+        if l_live != l_resumed or diffs or launches != {k: 2 * v for k, v in per_step.items()}:
+            raise AssertionError("the resumed step differs from the step without the save")
+
+        # -- the test CLI: the orbax directory against the .pth of the same weights --
+        n_val = ORBAX_SPLIT["n_val_fake"] + ORBAX_SPLIT["n_val_real"]
+        want = {k: n_val * CLI_FORWARD.get(k, 0) for k in build.LAUNCHES}
+        scores = {}
+        for label, ckpt in (("orbax", ckpt_dir), ("pth", pth_dir)):
+            build.reset_launches()
+            t0 = time.perf_counter()
+            (_, score, _), _ = run_captured(test_cli.main, [
+                "--cfg", cfg_path, "--check_point_dir", ckpt, "--out_dir",
+                os.path.join(run_dir, f"test_{label}"), "--split", "val"])
+            scores[label] = score
+            launches = dict(build.LAUNCHES)
+            print(f"test CLI on the {label} checkpoint: Score {score!r} in "
+                  f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+            if launches != want:
+                raise AssertionError(f"test CLI launches {launches} != {want}")
+        if not abs(scores["orbax"] - scores["pth"]) <= SCORE_TOL:
+            raise AssertionError(f"test CLI Scores {scores} differ (tol {SCORE_TOL:g})")
+        del state, state2, model, resumed
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic[:2]
+        torch.use_deterministic_algorithms(deterministic[2])
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
 @contextlib.contextmanager
 def phase(n: int, name: str):
     """Run one phase of the smoke; on any error say which on stdout and
@@ -2576,6 +2860,12 @@ def main() -> int:
         t0 = time.perf_counter()
         native_decode(train_args, _build, card, phase6_launches)
         print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+    with phase(17, "orbax checkpoints"):
+        t0 = time.perf_counter()
+        orbax_checkpoints(train_args, _build, card, phase6_launches)
+        print(f"phase 17: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
     with phase(9, "report"):

@@ -9,8 +9,9 @@ per-case grey heatmaps, binary masks, colour heatmaps and contour
 overlays under the same file names, and with ``MODEL.NUM_CLASSES > 1`` an
 argmax class map per case.  ``--tile`` runs sliding-window inference with a
 model built at the tile size.  The checkpoint is a reference-layout
-``.pth`` or a JAX ``.msgpack``, or a directory holding ``best_model.pth``
-or ``best_model.msgpack``; it loads with ``strict=True``.
+``.pth``, a JAX ``.msgpack`` or an orbax checkpoint directory, or a
+directory holding ``best_model.pth``, ``best_model.msgpack`` or
+``best_model.orbax`` (in that order); it loads with ``strict=True``.
 """
 
 from __future__ import annotations

@@ -6,8 +6,9 @@
 Counterpart of the JAX package's ``cli/test_cli.py`` (reference
 ``test.py:36-224``): copies ``--cfg`` to ``config_used.yaml`` in
 ``--out_dir``, loads the best checkpoint (in a directory, as the JAX test
-CLI: a JAX ``best_model.msgpack`` first, then ``best_model.pth``; or the
-file itself), runs the metric pass over
+CLI: a JAX ``best_model.msgpack`` first, then ``best_model.pth``, then a
+``best_model.orbax`` directory of either package; or the file itself, or
+the directory itself when it is an orbax checkpoint), runs the metric pass over
 the split with ``TEST.SIG_THRESHOLD`` (the 7 CSVs and ``log.txt`` in
 ``--out_dir``), and exports per-case PNGs under ``predictions/`` with the
 reference's test-side binary threshold 0.4 (``test.py:206``), the image

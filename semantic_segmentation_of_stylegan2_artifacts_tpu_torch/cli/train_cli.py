@@ -1,7 +1,8 @@
 """One training run on the card:
 
     python -m semantic_segmentation_of_stylegan2_artifacts_tpu_torch.cli.train_cli \\
-        --cfg config.yaml [--resume <epoch_N.pth>] [--device cuda] [--dist_backend gloo]
+        --cfg config.yaml [--resume <epoch_N.pth | epoch_N.orbax>] [--device cuda]
+        [--dist_backend gloo]
 
 Counterpart of the JAX package's ``cli/train_cli.py`` (reference
 ``train.py:24-122``): the frozen config, the hyperparameter echo,
@@ -39,7 +40,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cfg", type=str, required=True, metavar="FILE",
                         help="path to config file")
     parser.add_argument("--resume", type=str, default=None, metavar="CKPT",
-                        help="resume from an epoch_N.pth checkpoint "
+                        help="resume from an epoch_N.pth checkpoint or an "
+                             "epoch_N.orbax directory of either package "
                              "(params, optimizer, epoch)")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--dist_backend", type=str, default=None,

@@ -249,7 +249,7 @@ def default_config() -> CfgNode:
     # (models/msunet.py::resolve_remat); the trainer reads
     # PREFETCH_DEPTH (batches decoded ahead), DEVICE_PREFETCH (batches copied
     # to the card ahead), EVAL_BATCH, and CKPT_BACKEND / CKPT_ASYNC
-    # ("orbax" raises: no PyTorch counterpart).
+    # ("orbax": the JAX package's orbax directories, train/orbax.py).
     c.TPU = CfgNode()
     c.TPU.COMPUTE_DTYPE = "bfloat16"  # bfloat16 | float32
     c.TPU.SOFTMAX_DTYPE = "float32"  # float32 | bfloat16
@@ -266,7 +266,7 @@ def default_config() -> CfgNode:
     c.TPU.PREFETCH_DEPTH = 2
     c.TPU.DEVICE_PREFETCH = 2
     c.TPU.EVAL_BATCH = 1
-    c.TPU.CKPT_BACKEND = "msgpack"  # msgpack (the single-file .pth writer) | orbax
+    c.TPU.CKPT_BACKEND = "msgpack"  # msgpack (the single-file .pth writer) | orbax (directories)
     c.TPU.CKPT_ASYNC = False
     return c
 

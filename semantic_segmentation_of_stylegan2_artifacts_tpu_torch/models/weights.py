@@ -78,11 +78,11 @@ def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
     return ".".join(parts)
 
 
-def _to_flax(value: np.ndarray, transform: str) -> np.ndarray:
+def _to_flax(value: torch.Tensor, transform: str) -> torch.Tensor:
     if transform == "linear_t":
-        return np.ascontiguousarray(value.T)
+        return value.t()
     if transform == "conv_t":  # (out, in, kh, kw) -> (kh, kw, in, out)
-        return np.ascontiguousarray(value.transpose(2, 3, 1, 0))
+        return value.permute(2, 3, 1, 0)
     return value
 
 
@@ -92,6 +92,14 @@ def _from_flax(value: np.ndarray, transform: str) -> np.ndarray:
     if transform == "conv_t":  # (kh, kw, in, out) -> (out, in, kh, kw)
         return np.ascontiguousarray(value.transpose(3, 2, 0, 1))
     return value
+
+
+def _from_flax_tensor(value: torch.Tensor, transform: str) -> torch.Tensor:
+    if transform == "linear_t":
+        return value.t().contiguous()
+    if transform == "conv_t":
+        return value.permute(3, 2, 0, 1).contiguous()
+    return value.clone()
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -105,20 +113,25 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
 
 
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX params ``{'msunet': ...}`` -> a state dict for ``MSUNetSys``."""
+    """JAX params ``{'msunet': ...}`` (numpy or tensor leaves) -> a state
+    dict for ``MSUNetSys``."""
     sd = {}
     for path, value in _flatten(params["msunet"]).items():
         key = flax_path_to_torch_key(path)
         mapped = torch_key_to_flax_path(key)
         if mapped is None or mapped[0] != path:
             raise KeyError(f"no reference key for flax path {'/'.join(path)}")
-        sd[key] = torch.from_numpy(_from_flax(np.asarray(value), mapped[1]).copy())
+        if torch.is_tensor(value):  # the orbax reader's leaves
+            sd[key] = _from_flax_tensor(value, mapped[1])
+        else:
+            sd[key] = torch.from_numpy(_from_flax(np.asarray(value), mapped[1]).copy())
     return sd
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     """A ``MSUNetSys`` (or reference, prefix stripped) state dict -> the JAX
-    params tree ``{'msunet': ...}`` of numpy arrays."""
+    params tree ``{'msunet': ...}`` of numpy arrays, copies in host memory
+    (laid out on the tensors' device first: the card transposes fast)."""
     tree: Dict = {}
     for key, value in state_dict.items():
         mapped = torch_key_to_flax_path(key)
@@ -128,7 +141,8 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = _to_flax(value.detach().cpu().numpy(), transform)
+        node[path[-1]] = _to_flax(value.detach(), transform).contiguous().to(
+            "cpu", copy=True).numpy()
     return {"msunet": tree}
 
 

@@ -1,5 +1,7 @@
 """Native PNG decode for the host data pipeline, with the GIL released
-(counterpart of the JAX package's ``native/``).
+(counterpart of the JAX package's ``native/``), and :func:`build`, which
+compiles this package's C++ sources (``decode.cpp`` here, ``zstd.cpp`` for
+``zstd.py``).
 
 ``decode.cpp`` compiles at first use, never at import, with ``g++`` into
 ``_build/native/<hash of the source>/libssadecode.so`` and loads with
@@ -78,11 +80,11 @@ def _count(kind: str) -> None:
         DECODES[kind] += 1
 
 
-def _compile(lib_path: Path) -> None:
+def _compile(src: Path, lib_path: Path) -> None:
     lib_path.parent.mkdir(parents=True, exist_ok=True)
     # a name of this process and thread: test workers race to build
-    tmp = lib_path.with_name(f"{_LIB_NAME}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [CXX, *_FLAGS, str(SRC), "-o", str(tmp)]
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [CXX, *_FLAGS, str(src), "-o", str(tmp)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as e:
@@ -92,6 +94,21 @@ def _compile(lib_path: Path) -> None:
     os.replace(tmp, lib_path)
 
 
+def build(src: Path, lib_name: str) -> ctypes.CDLL:
+    """Compile ``src`` into ``BUILD_DIR/<hash of the source and flags>/lib_name``
+    unless that library exists, and load it; ``RuntimeError`` with the
+    compiler's output when the build or the load fails."""
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join([CXX, *_FLAGS]).encode())
+    lib_path = BUILD_DIR / h.hexdigest()[:16] / lib_name
+    if not lib_path.exists():
+        _compile(src, lib_path)
+    try:
+        return ctypes.CDLL(str(lib_path))
+    except OSError as e:
+        raise RuntimeError(f"cannot load {lib_path}: {e}") from e
+
+
 def library() -> ctypes.CDLL:
     """Build ``decode.cpp`` if this source has no library yet; load it."""
     global _lib
@@ -99,15 +116,7 @@ def library() -> ctypes.CDLL:
         return _lib
     with _build_lock:
         if _lib is None:
-            h = hashlib.sha256(SRC.read_bytes())
-            h.update(" ".join([CXX, *_FLAGS]).encode())
-            lib_path = BUILD_DIR / h.hexdigest()[:16] / _LIB_NAME
-            if not lib_path.exists():
-                _compile(lib_path)
-            try:
-                lib = ctypes.CDLL(str(lib_path))
-            except OSError as e:
-                raise RuntimeError(f"cannot load {lib_path}: {e}") from e
+            lib = build(SRC, _LIB_NAME)
             lib.ssa_png_header.argtypes = [ctypes.c_char_p, ctypes.c_int64,
                                            ctypes.POINTER(_Png), ctypes.c_void_p]
             lib.ssa_png_header.restype = ctypes.c_int

@@ -1,6 +1,7 @@
-"""Checkpoints: atomic best and last saves, a background writer, and a
-reader for the JAX package's ``.msgpack`` files (counterpart of the JAX
-package's ``train/checkpoint.py``; reference ``trainer.py:361-409``).
+"""Checkpoints: atomic best and last saves, a background writer, and
+readers for the JAX package's ``.msgpack`` files and orbax directories
+(counterpart of the JAX package's ``train/checkpoint.py``; reference
+``trainer.py:361-409``).
 
 * ``best_model.pth``: ``{'model': state_dict, 'epoch', 'best_score'}``, the
   reference's payload; the keys carry the ``ms_unet.`` prefix of the
@@ -10,6 +11,11 @@ package's ``train/checkpoint.py``; reference ``trainer.py:361-409``).
   dice, for ``--resume``.
 * Every write goes to a tmp file first and is moved over the target with
   ``os.replace``.
+* ``backend="orbax"`` (``TPU.CKPT_BACKEND: orbax``) writes
+  ``best_model.orbax`` and ``epoch_N.orbax`` directories instead
+  (``train/orbax.py``) holding the JAX package's trees: ``model`` in the
+  flax layout (``models/weights.py``), the optimizer as optax's state
+  (``train/optim.py::to_optax``), so either package reads either's.
 * :func:`load_best_state_dict` reads a best checkpoint of either package.
 """
 
@@ -23,7 +29,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..models.weights import flax_to_state_dict, load_reference_checkpoint
+from ..models.weights import flax_to_state_dict, load_reference_checkpoint, state_dict_to_flax
+from . import orbax
+from .optim import to_optax
 
 
 def snapshot(tree: Any) -> Any:
@@ -82,6 +90,18 @@ def load_jax_best(path: str) -> Dict:
     return {**raw, "model": flax_to_state_dict(raw["model"])}
 
 
+def load_orbax(path: str) -> Dict:
+    """An orbax checkpoint directory of either package, its ``model`` as an
+    ``MSUNetSys`` state dict; the rest (``optimizer``: optax's state) raw."""
+    raw = orbax.restore(path)
+    return {**raw, "model": flax_to_state_dict(raw["model"])}
+
+
+def _flax_params(model: torch.nn.Module) -> Dict:
+    """The parameters of ``model``'s network in the flax layout, copied."""
+    return state_dict_to_flax(getattr(model, "ms_unet", model).state_dict())
+
+
 class CheckpointWriter:
     """Best and last checkpoints, written in the caller's thread or, with
     ``async_``, by one background thread in submission order.
@@ -92,16 +112,13 @@ class CheckpointWriter:
     background save; :meth:`close` waits and stops the thread.
 
     ``backend``: ``msgpack`` is the JAX package's name for its single-file
-    writer, here ``torch.save`` to ``.pth``; ``orbax`` has no PyTorch
-    counterpart and raises."""
+    writer, here ``torch.save`` to ``.pth``; ``orbax`` writes the JAX
+    package's orbax directories (``train/orbax.py``)."""
 
     def __init__(self, backend: str = "msgpack", async_: bool = False):
-        if backend == "orbax":
-            raise NotImplementedError(
-                "TPU.CKPT_BACKEND 'orbax' has no counterpart in the PyTorch port "
-                "(ROADMAP.md); use 'msgpack', the single-file writer")
-        if backend != "msgpack":
+        if backend not in ("msgpack", "orbax"):
             raise ValueError(f"unknown checkpoint backend: {backend!r}")
+        self.backend = backend
         self._error: Optional[BaseException] = None
         self._queue: Optional[queue.Queue] = None
         self._thread: Optional[threading.Thread] = None
@@ -113,17 +130,28 @@ class CheckpointWriter:
 
     def save_best(self, log_dir: str, model: torch.nn.Module, epoch: int,
                   best_score: float) -> str:
+        if self.backend == "orbax":
+            path = os.path.join(log_dir, "best_model.orbax")
+            self._submit(path, {"model": _flax_params(model), "epoch": int(epoch),
+                                "best_score": float(best_score)})
+            return path
         path = os.path.join(log_dir, "best_model.pth")
-        self._submit(path, {"model": model.state_dict(), "epoch": int(epoch),
-                            "best_score": float(best_score)})
+        self._submit(path, snapshot({"model": model.state_dict(), "epoch": int(epoch),
+                                     "best_score": float(best_score)}))
         return path
 
     def save_last(self, log_dir: str, epoch: int, model: torch.nn.Module,
                   optimizer: torch.optim.Optimizer, iter_num: int, dice: float) -> str:
+        if self.backend == "orbax":
+            path = os.path.join(log_dir, f"epoch_{epoch}.orbax")
+            self._submit(path, {"epoch": int(epoch), "model": _flax_params(model),
+                                "optimizer": to_optax(optimizer, model),
+                                "iter_num": int(iter_num), "dice": float(dice)})
+            return path
         path = os.path.join(log_dir, f"epoch_{epoch}.pth")
-        self._submit(path, {"epoch": int(epoch), "model": model.state_dict(),
-                            "optimizer": optimizer.state_dict(),
-                            "iter_num": int(iter_num), "dice": float(dice)})
+        self._submit(path, snapshot({"epoch": int(epoch), "model": model.state_dict(),
+                                     "optimizer": optimizer.state_dict(),
+                                     "iter_num": int(iter_num), "dice": float(dice)}))
         return path
 
     def wait(self) -> None:
@@ -141,10 +169,16 @@ class CheckpointWriter:
             self._thread.join(timeout=60)
             self._thread = None
 
-    def _submit(self, path: str, payload: Dict) -> None:
-        payload = snapshot(payload)
-        if self._queue is None:
+    def _write(self, path: str, payload: Dict) -> None:
+        if self.backend == "orbax":
+            orbax.save(path, payload)
+        else:
             save_checkpoint(path, payload)
+
+    def _submit(self, path: str, payload: Dict) -> None:
+        """``payload`` is a copy already: nothing the next step changes."""
+        if self._queue is None:
+            self._write(path, payload)
             return
         if self._error is not None:
             self.wait()  # surface an earlier failure now
@@ -156,7 +190,7 @@ class CheckpointWriter:
             try:
                 if job is None:
                     return
-                save_checkpoint(*job)
+                self._write(*job)
             except Exception as e:  # noqa: BLE001 - re-raised by wait()
                 self._error = e
             finally:
@@ -172,31 +206,30 @@ TEST_ORDER = ("best_model.msgpack", "best_model.pth", "best_model.orbax")
 
 
 def resolve_checkpoint(path: str, order=PREDICT_ORDER) -> str:
-    """A best checkpoint file: ``path`` itself, or the first name of
-    ``order`` that exists in the directory ``path``.  An orbax checkpoint
-    raises ``NotImplementedError``."""
+    """A best checkpoint: ``path`` itself when it is a file, or an orbax
+    checkpoint directory (a name ending in ``.orbax``, JAX ``cli/test_cli.py``,
+    or holding ``_CHECKPOINT_METADATA``, JAX ``load_best``) with no name of
+    ``order`` in it; else the first name of ``order`` in the directory."""
     if not os.path.isdir(path):
         return path
     for name in order:
         cand = os.path.join(path, name)
         if os.path.exists(cand):
-            if name.endswith(".orbax"):
-                break
             return cand
-    if path.rstrip("/").endswith(".orbax") or os.path.exists(
-            os.path.join(path, "best_model.orbax")):
-        raise NotImplementedError(f"{path}: orbax checkpoints have no reader in the "
-                                  "PyTorch port (ROADMAP.md)")
+    if path.rstrip("/").endswith(".orbax") or orbax.is_checkpoint(path):
+        return path
     raise FileNotFoundError(f"No best_model checkpoint in {path}")
 
 
 def load_best_state_dict(path: str, order=PREDICT_ORDER) -> Dict[str, torch.Tensor]:
     """The ``MSUNetSys`` state dict of a best checkpoint (file or directory,
-    see :func:`resolve_checkpoint`): a reference-layout ``.pth``/``.pt`` or
-    a JAX ``.msgpack``."""
+    see :func:`resolve_checkpoint`): a reference-layout ``.pth``/``.pt``, a
+    JAX ``.msgpack`` or an orbax directory of either package."""
     path = resolve_checkpoint(path, order)
+    if os.path.isdir(path):
+        return load_orbax(path)["model"]
     if path.endswith(".msgpack"):
         return load_jax_best(path)["model"]
     if path.endswith((".pth", ".pt")):
         return load_reference_checkpoint(path)
-    raise ValueError(f"{path}: not a .pth, .pt or .msgpack checkpoint")
+    raise ValueError(f"{path}: not a .pth, .pt, .msgpack or orbax checkpoint")

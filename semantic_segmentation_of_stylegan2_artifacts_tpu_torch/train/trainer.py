@@ -64,8 +64,8 @@ from ..metrics.segmentation import (
     to_case_metrics,
 )
 from ..viz.maps import create_bin_heat_mask_from_list
-from .checkpoint import CheckpointWriter, load_checkpoint
-from .optim import build_optimizer, unfreeze
+from .checkpoint import CheckpointWriter, load_checkpoint, load_orbax
+from .optim import build_optimizer, load_optax, unfreeze
 from .schedule import CosineWarmupSchedule
 from .state import TrainState, create_train_state, make_eval_step, make_train_step
 
@@ -194,7 +194,8 @@ def trainer(model, logger, writer, log_save_path: str = "", config=None,
     here on ``device``, the card unless the caller passes another, when
     None); with ``MODEL.FREEZE_ENCODER`` a state built here starts with the
     encoder frozen, and a state passed in must be so already.
-    ``resume_from`` is an ``epoch_N.pth`` of :class:`CheckpointWriter`.
+    ``resume_from`` is an ``epoch_N.pth`` of :class:`CheckpointWriter`, or
+    an ``epoch_N.orbax`` directory of either package.
     Under a process group ``model`` is this rank's replica, already on its
     device."""
     if config is None:
@@ -248,13 +249,15 @@ def trainer(model, logger, writer, log_save_path: str = "", config=None,
 
     start_epoch = int(config.TRAIN.START_EPOCH)
     if resume_from:
-        raw = load_checkpoint(resume_from)
+        from_orbax = os.path.isdir(resume_from)
+        raw = load_orbax(resume_from) if from_orbax else load_checkpoint(resume_from)
         start_epoch = int(raw["epoch"]) + 1
         if freeze_encoder:
             # replay the scheduled unfreezes up to the resume epoch (one stage
             # an epoch, deepest first, as below), so the optimizer's groups
             # match the checkpoint's; an unfreeze that an early stop brought
-            # forward cannot be replayed: params only then
+            # forward cannot be replayed: params only then from a .pth, an
+            # error from an orbax directory
             frozen_stages = set(range(4))
             state.optimizer = build_optimizer(config, model, frozen_stages)
             for e in range(start_epoch):
@@ -262,14 +265,20 @@ def trainer(model, logger, writer, log_save_path: str = "", config=None,
                     if stage in frozen_stages and e >= stage_unfreeze_epoch[stage]:
                         unfreeze_stage(stage)
                         break
-        model.load_state_dict(raw["model"], strict=True)
-        try:
-            state.optimizer.load_state_dict(raw["optimizer"])
-        except ValueError:
-            logger.warning(
-                f"Optimizer state in {resume_from} does not match the rebuilt "
-                "structure (e.g. an early-stop-forced unfreeze before the save); "
-                "restoring params only, fresh moments.")
+        if from_orbax:
+            # either package's epoch_N.orbax: optax's state; a layout that
+            # differs from the rebuilt optimizer's raises
+            getattr(model, "ms_unet", model).load_state_dict(raw["model"], strict=True)
+            load_optax(state.optimizer, model, raw["optimizer"], resume_from)
+        else:
+            model.load_state_dict(raw["model"], strict=True)
+            try:
+                state.optimizer.load_state_dict(raw["optimizer"])
+            except ValueError:
+                logger.warning(
+                    f"Optimizer state in {resume_from} does not match the rebuilt "
+                    "structure (e.g. an early-stop-forced unfreeze before the save); "
+                    "restoring params only, fresh moments.")
         # the noise seed folds the step in: resumed noise continues the sequence
         state.step = int(raw.get("iter_num", 0))
         logger.info(f"Resumed from {resume_from} at epoch {start_epoch}")

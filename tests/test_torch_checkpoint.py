@@ -4,7 +4,9 @@
   ``best_model.pth`` and ``epoch_N.pth`` round-trip the model and the
   optimizer; the background writer writes what the parameters held when
   ``save_best`` returned, though they change right after; a failed
-  background save re-raises from ``wait()``; ``orbax`` raises.
+  background save re-raises from ``wait()``; the ``orbax`` backend's
+  directories read back in bits, the AdamW state through optax's layout;
+  an unknown backend raises.
 * A JAX ``best_model.msgpack`` (the JAX package's ``save_best``) read by
   the port equals ``flax_to_state_dict`` of its params, bit for bit.
 * A port ``best_model.pth`` read through the JAX test CLI's conversion path
@@ -52,7 +54,7 @@ from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models import weight
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.weights import (
     flax_to_state_dict,
 )
-from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train import checkpoint
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train import checkpoint, optim
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train.state import (
     create_train_state,
     make_train_step,
@@ -154,9 +156,25 @@ def test_async_failure_reraises_from_wait(tmp_path):
     writer.close()
 
 
-def test_orbax_backend_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        checkpoint.CheckpointWriter(backend="orbax")
+def test_orbax_backend_raises(tmp_path):
+    """The orbax backend writes directories that read back in bits; only an
+    unknown backend raises."""
+    model, state = _trained(seed=2)
+    writer = checkpoint.CheckpointWriter(backend="orbax")
+    best = writer.save_best(str(tmp_path), model, 3, -0.25)
+    last = writer.save_last(str(tmp_path), 4, model, state.optimizer, 17, 0.5)
+    writer.close()
+    assert sorted(os.listdir(tmp_path)) == ["best_model.orbax", "epoch_4.orbax"]
+    _equal_trees(checkpoint.load_best_state_dict(best), model.ms_unet.state_dict())
+    got = checkpoint.load_orbax(last)
+    assert (got["epoch"], got["iter_num"], got["dice"]) == (4, 17, 0.5)
+    fresh = MSUNet(**TINY)
+    fresh.ms_unet.load_state_dict(got["model"], strict=True)
+    opt = create_train_state(fresh, default_config(), device="cpu").optimizer
+    optim.load_optax(opt, fresh, got["optimizer"], last)
+    _equal_trees(opt.state_dict()["state"], state.optimizer.state_dict()["state"])
+    # optax keeps the learning rate as a float32 hyperparameter
+    assert opt.param_groups[0]["lr"] == float(np.float32(state.optimizer.param_groups[0]["lr"]))
     with pytest.raises(ValueError, match="unknown checkpoint backend"):
         checkpoint.CheckpointWriter(backend="npz")
 

@@ -7,7 +7,11 @@ A directory holds a JAX ``best_model.msgpack`` (the JAX init from
 (JAX ``cli/test_cli.py::_resolve_checkpoint``); the port's test CLI must
 report the same Score, to 1e-6 (float32 forwards of two packages), and a
 Score other than the ``.pth`` file's.  The predict CLI keeps the ``.pth``
-first, as JAX ``cli/predict_cli.py`` does.  The config is the tiny one of
+first, as JAX ``cli/predict_cli.py`` does.  A ``best_model.orbax`` comes
+last in both orders; an orbax directory is a checkpoint itself (by its
+``.orbax`` name or its ``_CHECKPOINT_METADATA``), and a directory without
+that file is not one.  On either package's ``best_model.orbax`` the two
+test CLIs report the same Score, to 1e-6.  The config is the tiny one of
 ``tests/test_torch_trainer_features.py``.
 """
 
@@ -17,6 +21,7 @@ import os
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from test_torch_trainer_features import _config, data  # noqa: F401  (fixture)
 from semantic_segmentation_of_stylegan2_artifacts_tpu.cli import test_cli as jax_test_cli
@@ -24,6 +29,9 @@ from semantic_segmentation_of_stylegan2_artifacts_tpu.core.config import (
     load_config as jax_load_config,
 )
 from semantic_segmentation_of_stylegan2_artifacts_tpu.models import MSUNet as JaxMSUNet
+from semantic_segmentation_of_stylegan2_artifacts_tpu.train.checkpoint import (
+    CheckpointWriter as JaxCheckpointWriter,
+)
 from semantic_segmentation_of_stylegan2_artifacts_tpu.train.checkpoint import (
     save_best as jax_save_best,
 )
@@ -75,7 +83,7 @@ def test_test_cli_reads_the_checkpoint_jax_reads(both, tmp_path, monkeypatch):
 
 
 def test_each_cli_has_its_checkpoint_order(both):
-    _, ckpt = both
+    cfg_path, ckpt = both
     assert checkpoint.resolve_checkpoint(ckpt, checkpoint.TEST_ORDER).endswith(
         "best_model.msgpack")
     assert checkpoint.resolve_checkpoint(ckpt).endswith("best_model.pth")
@@ -85,7 +93,57 @@ def test_each_cli_has_its_checkpoint_order(both):
     assert checkpoint.resolve_checkpoint(ckpt, checkpoint.TEST_ORDER).endswith(
         "best_model.pth")
     os.remove(os.path.join(ckpt, "best_model.pth"))
-    os.makedirs(os.path.join(ckpt, "best_model.orbax"))
+    uncommitted = os.path.join(ckpt, "best_model.orbax")
+    os.makedirs(uncommitted)  # no _CHECKPOINT_METADATA: not a checkpoint
     for order in (checkpoint.TEST_ORDER, checkpoint.PREDICT_ORDER):
-        with pytest.raises(NotImplementedError, match="orbax"):
-            checkpoint.resolve_checkpoint(ckpt, order)
+        assert checkpoint.resolve_checkpoint(ckpt, order) == uncommitted
+        with pytest.raises(FileNotFoundError, match="not an orbax checkpoint"):
+            checkpoint.load_best_state_dict(ckpt, order)
+    os.rmdir(uncommitted)
+    model = MSUNet.from_config(load_config(cfg_path), device="cpu")
+    best = checkpoint.CheckpointWriter(backend="orbax").save_best(ckpt, model, 1, 0.0)
+    for order in (checkpoint.TEST_ORDER, checkpoint.PREDICT_ORDER):
+        assert checkpoint.resolve_checkpoint(ckpt, order) == best
+    # an orbax directory is itself a checkpoint, by its name or its metadata
+    assert checkpoint.resolve_checkpoint(best) == best
+    renamed = os.path.join(ckpt, "renamed")
+    os.rename(best, renamed)
+    assert checkpoint.resolve_checkpoint(renamed) == renamed
+    sd = checkpoint.load_best_state_dict(renamed)
+    assert all(torch.equal(sd[k], v) for k, v in model.ms_unet.state_dict().items())
+    with pytest.raises(FileNotFoundError, match="No best_model checkpoint"):
+        checkpoint.resolve_checkpoint(ckpt)
+
+
+@pytest.fixture
+def orbax_dirs(tmp_path, data):  # noqa: F811
+    """A JAX ``best_model.orbax`` (JAX's init, ``PRNGKey(1)``) and a port one
+    (the port's init, seed 99), each alone in its directory."""
+    cfg_path = _config(tmp_path, data)
+    jm = JaxMSUNet.from_config(jax_load_config(cfg_path))
+    params = jax.jit(lambda: jm.init({"params": jax.random.PRNGKey(1)},
+                                     jnp.zeros((1, 32, 32, 3)), True))()["params"]
+    jax_writer = JaxCheckpointWriter(backend="orbax")
+    jax_writer.save_best(str(tmp_path / "jax"), params, 1, 0.0)
+    jax_writer.close()
+    model = MSUNet.from_config(load_config(cfg_path), device="cpu")
+    init_weights(model, 99)
+    checkpoint.CheckpointWriter(backend="orbax").save_best(str(tmp_path / "port"), model,
+                                                           1, 0.0)
+    return cfg_path, str(tmp_path / "jax"), str(tmp_path / "port")
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_test_clis_score_orbax_checkpoints_alike(orbax_dirs, tmp_path, monkeypatch, writer):
+    """Either package's ``best_model.orbax``: the port's test CLI reports
+    the JAX test CLI's Score, to 1e-6, on the directory that holds it and on
+    the orbax directory itself."""
+    monkeypatch.setenv("SSA_TPU_COMP_CACHE", "0")  # the JAX CLI's cache stays off
+    cfg_path, jax_dir, port_dir = orbax_dirs
+    ckpt = jax_dir if writer == "jax" else port_dir
+    _, want, _ = _run(jax_test_cli, cfg_path, ckpt, str(tmp_path / "jax_out"), port=False)
+    _, got, _ = _run(test_cli, cfg_path, ckpt, str(tmp_path / "port_out"))
+    _, itself, _ = _run(test_cli, cfg_path, os.path.join(ckpt, "best_model.orbax"),
+                        str(tmp_path / "itself"))
+    assert abs(got - want) <= 1e-6, (got, want)
+    assert itself == got

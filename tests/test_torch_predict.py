@@ -9,9 +9,11 @@
   file names as the JAX CLI from the same ``.pth`` checkpoint.
 * With no CUDA and no ``device="cpu"`` the entry points raise.
 * Importing the port (the four CLIs, the YAML editor, the trainer, the
-  checkpoint module, the LR range test, the plots and the tools among it)
-  and running a CPU forward and a recomputed CPU train step, in a fresh
-  process, loads neither jax, flax nor the JAX package.
+  checkpoint modules with the orbax reader and writer, the zstd decoder,
+  the LR range test, the plots and the tools among it), decoding a zstd
+  frame, writing and reading an orbax checkpoint, and running a CPU forward
+  and a recomputed CPU train step, in a fresh process, loads none of jax,
+  flax, optax, orbax, tensorstore, zstandard and the JAX package.
 """
 
 import logging
@@ -135,7 +137,13 @@ assert native.available()
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools import (
     ckpt_inspect, dataset_check, dp_check, epoch_bench, parity_vs_deploy)
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train import (
-    checkpoint, lr_range, trainer)
+    checkpoint, lr_range, ocdbt, optim, orbax, trainer, zarr)
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.native import zstd
+assert zstd.decompress(bytes.fromhex("28b52ffd2003190000616263")) == b"abc"
+import tempfile
+with tempfile.TemporaryDirectory() as d:
+    orbax.save(d + "/x.orbax", {"a": torch.ones(3), "epoch": 1})
+    assert orbax.restore(d + "/x.orbax")["epoch"] == 1
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.viz import (
     artifact_distribution, eval_overlays, plots)
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.viz.maps import save_contour_heatmap
@@ -158,7 +166,8 @@ loss = make_train_step(m, 0.2, 0.8, 0.45)(
     np.zeros((1, 32, 32, 3), np.uint8), np.ones((1, 32, 32), np.uint8), 1e-4)
 assert bool(torch.isfinite(loss))
 jax_pkg = "semantic_segmentation_of_stylegan2_artifacts_tpu"
-bad = [n for n in sys.modules if n in ("jax", "flax") or n.startswith(("jax.", "flax."))
+banned = ("jax", "flax", "optax", "orbax", "tensorstore", "zstandard")
+bad = [n for n in sys.modules if n in banned or n.startswith(tuple(b + "." for b in banned))
        or n == jax_pkg or n.startswith(jax_pkg + ".")]
 print("LOADED", bad)
 """

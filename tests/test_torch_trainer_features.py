@@ -10,7 +10,9 @@ depths 1/1/1/1, window 4, float32, the kernel knobs off).
 * Resume from ``epoch_N.pth`` continues the epoch, ``iter_num`` and the
   step count (with and without a frozen encoder, whose unfreezes replay).
 * A non-finite loss raises ``FloatingPointError``; early stopping ends the
-  run; ``TPU.CKPT_BACKEND: orbax`` raises.
+  run; ``TPU.CKPT_BACKEND: orbax`` writes ``best_model.orbax`` and
+  ``epoch_N.orbax``, a resume from the latter restores the state in bits,
+  and one into another frozen set raises.
 * The train and test CLIs on ``--device cpu`` write ``config_used.yaml`` (a
   byte copy of ``--cfg``),
   ``log.txt`` (each ``epoch_timing`` line counting native decodes and none
@@ -48,7 +50,11 @@ from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.data.synthetic impor
     generate_synthetic_dataset,
 )
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import MSUNet
-from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train import optim, trainer
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train import (
+    checkpoint,
+    optim,
+    trainer,
+)
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train.checkpoint import (
     load_checkpoint,
 )
@@ -243,10 +249,52 @@ def test_non_finite_loss_raises(tmp_path, data):
 
 
 def test_orbax_backend_raises(tmp_path, data):
-    cfg = load_config(_config(tmp_path, data, **{"TPU.CKPT_BACKEND": "orbax"}))
-    with pytest.raises(NotImplementedError, match="orbax"):
-        trainer.trainer(MSUNet.from_config(cfg, device="cpu"), None, None,
-                        str(tmp_path / "out"), cfg, device="cpu")
+    """``TPU.CKPT_BACKEND: orbax`` with ``CKPT_ASYNC`` writes the JAX file
+    names; ``--resume`` from its ``epoch_1.orbax`` restores the parameters
+    and the AdamW state in bits; resuming it into another frozen set raises
+    (no params-only fallback)."""
+    common = {"TPU.CKPT_BACKEND": "orbax", "TPU.CKPT_ASYNC": True, "SAVE_LAST_RUN": True}
+    _, _, out = _train(tmp_path / "a", data, **common)
+    assert {"best_model.orbax", "epoch_1.orbax"} <= set(os.listdir(out))
+    assert not [n for n in os.listdir(out) if n.endswith(".pth")]
+    ckpt = os.path.join(out, "epoch_1.orbax")
+    saved = checkpoint.load_orbax(ckpt)
+    assert (saved["epoch"], saved["iter_num"]) == (1, 10)
+    cfg = load_config(_config(tmp_path / "b", data, **common))
+    model = MSUNet.from_config(cfg, device="cpu")
+    state = create_train_state(model, cfg, device="cpu")
+    log = logging.getLogger(f"features.{next(_RUNS)}")
+    trainer.trainer(model, log, None, str(tmp_path / "b" / "out"), cfg, state=state,
+                    resume_from=ckpt, device="cpu")  # epoch 2 of 2: nothing to run
+    assert state.step == 10
+    for k, v in saved["model"].items():
+        assert torch.equal(model.ms_unet.state_dict()[k], v), k
+    _assert_same_tree(optim.to_optax(state.optimizer, model),
+                      optim.to_optax(*_loaded(saved, cfg)))
+    cfg = load_config(_config(tmp_path / "c", data, **common,
+                              **{"MODEL.FREEZE_ENCODER": True}))
+    with pytest.raises(ValueError, match="the frozen stages differ"):
+        trainer.trainer(MSUNet.from_config(cfg, device="cpu"), log, None,
+                        str(tmp_path / "c" / "out"), cfg, resume_from=ckpt, device="cpu")
+
+
+def _assert_same_tree(a, b):
+    assert isinstance(a, dict) == isinstance(b, dict)
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _assert_same_tree(a[k], b[k])
+    else:
+        assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def _loaded(saved, cfg):
+    """An AdamW loaded from an orbax checkpoint's optax state, and its model."""
+    model = MSUNet.from_config(cfg, device="cpu")
+    model.ms_unet.load_state_dict(saved["model"], strict=True)
+    opt = optim.build_optimizer(cfg, model)
+    optim.load_optax(opt, model, saved["optimizer"])
+    return opt, model
 
 
 def _files(root):
