@@ -115,27 +115,31 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    losses over three steps within ``DDP_LOSS_TOL`` (and whether the bits
    matched), ms/step, MFU and the step's device time by model section
    (``utils/profiling.py::section_times``); (b) two ranks on the card over
-   gloo (NCCL refuses two ranks on one device; NCCL across cards is not
-   run) training Swin-B 512^2 in float32 with drop rates 0 over a global
-   batch of 8 (4 + 4) for three steps against one process over the same
-   batches (``tools/dp_check.py``): losses within ``DP_LOSS_TOL``,
-   parameters within Adam's bound of 2 x lr x steps with at most 1e-3 of
-   them beyond 1e-5; then each rank's ms/step, MFU and peak memory over
-   five bf16 deployment steps; (c) ``config.yaml`` at 256^2 with
+   gloo (NCCL refuses two ranks on one device; NCCL across four cards is
+   ``tools/multichip.py``'s, on the four-card machine) training Swin-B
+   512^2 in float32 with drop rates 0 over a global batch of 8 (4 + 4) for
+   three steps against one process over the same batches
+   (``tools/dp_check.py::hold_against_one``, as ``tools/multichip.py``
+   holds four NCCL ranks): phase 6's launches a step, losses within
+   ``dp_check.LOSS_TOL``, parameters within Adam's bound of 2 x lr x steps
+   with at most 1e-3 of them beyond 1e-5; then each rank's ms/step, device
+   time of one step (``utils/profiling.py::kernel_times``), MFU and peak
+   memory over five bf16 deployment steps; (c) ``config.yaml`` at 256^2 with
    ``FREEZE_ENCODER`` through the train CLI with ``HARDWARE.N_GPU: 2`` on
    two gloo ranks on the card: each epoch's ``rank_sync`` line (the
    trainer raises unless both ranks hold the same parameters) shows the
    frozen stages at their initial values and each unfrozen stage moved;
 15. tensor and spatial parallelism on the one card (run before 9): two gloo
-   ranks share it (NCCL across cards is not run) and train Swin-B 512^2,
-   batch 2, float32, drop rates 0, every kernel knob on, for three steps,
+   ranks share it (NCCL across four cards: ``tools/multichip.py``) and
+   train Swin-B 512^2, batch 2, float32, drop rates 0, every kernel knob
+   on, for three steps,
    (a) with ``TPU.MODEL_AXIS`` on a mesh with ``n_model=2``
    (``parallel/tp.py``), (b) with ``TPU.SPATIAL_AXIS`` and ``n_space=2``
    (``parallel/spatial.py``; the stage grids 128/64/32/16 pad to
    133/70/35/21: uneven slabs, shifted windows across the ranks), each
    against one process's composed step from the same seeded weights: no
    kernel launched under the axis (the axis routes them off), losses
-   within ``SHARD_LOSS_TOL``, parameters within Adam's bound of 2 x lr x
+   within ``dp_check.LOSS_TOL``, parameters within Adam's bound of 2 x lr x
    steps with at most 1e-3 of them beyond 1e-5; then each rank's ms/step
    (CUDA events), device time of one step (profiler) and peak memory;
 16. the native decoder (``native/``; run before 9) over a synthetic split
@@ -1084,36 +1088,12 @@ def check_refine_head(frh, gen) -> KernelReport:
     return rep
 
 
-PROFILE_PAD_S = 0.05  # host seconds before and after the work in a profile
-
-
 def kernel_times(fn) -> list:
-    """(device ms, launches, name) of every CUDA kernel of one call of
-    ``fn()``, by torch.profiler (CUPTI), in launch order of first use."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """(device ms, launches, name) of every kernel and copy of one call of
+    ``fn()`` on the current card (``utils/profiling.py::kernel_times``)."""
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.utils import profiling
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # the profiler keeps only the device events whose times, moved onto
-        # the host's clock, fall inside its window, and on the H100 that
-        # move has been seen 3-4 ms off, losing a call's first launches or
-        # all of them: keep the card's work well inside the window
-        time.sleep(PROFILE_PAD_S)
-        torch.zeros(1, device="cuda")
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-        time.sleep(PROFILE_PAD_S)
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue  # host-side ops; their kernels are listed on their own
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        rows.append((dev_us / 1e3, ev.count, ev.key))
-    return rows
+    return profiling.kernel_times(fn)
 
 
 def profile_forward(step, images, fwd_ms: float, top: int = 12,
@@ -1132,47 +1112,12 @@ def profile_forward(step, images, fwd_ms: float, top: int = 12,
     return total
 
 
-def deployment_config(default_config, **changes):
-    """config.yaml's deployment model at 512^2; ``changes`` maps dotted
-    keys to values (``{"TPU.FUSED_PATCH": False}``)."""
-    cfg = default_config()
-    cfg.DATA.IMG_SIZE = IMG
-    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
-    cfg.TPU.SOFTMAX_DTYPE = "bfloat16"
-    for knob in ("USE_PALLAS_ATTENTION", "GELU_TANH", "FUSED_HEAD", "FUSED_PATCH"):
-        cfg.TPU[knob] = True
-    cfg.SEED = 120
-    for key, value in changes.items():
-        *path, leaf = key.split(".")
-        node = cfg
-        for part in path:
-            node = node[part]
-        node[leaf] = value
-    cfg.freeze()
-    return cfg
-
-
-# bench.py's train step (bench.py:153-163, 216; FUSED_PATCH on unless
-# --no_fused_patch, bench.py:161): no dropout, drop-path 0.1
-TRAIN_CHANGES = {"MODEL.DROP_RATE": 0.0, "MODEL.ATTN_DROP_RATE": 0.0,
-                 "MODEL.DROP_PATH_RATE": 0.1}
-# the composed path: every kernel knob off, float32 softmax
-COMPOSED = {"TPU.USE_PALLAS_ATTENTION": False, "TPU.FUSED_HEAD": False,
-            "TPU.FUSED_PATCH": False, "TPU.SOFTMAX_DTYPE": "float32"}
-
-
 def expect(build, **counts) -> dict:
     """The full launch dict of a path: ``counts``, every other counter 0."""
     unknown = set(counts) - set(build.LAUNCHES)
     if unknown:
         raise KeyError(f"no such launch counters: {sorted(unknown)}")
     return {k: counts.get(k, 0) for k in build.LAUNCHES}
-
-
-def train_batch(rng, batch, img=IMG):
-    images = rng.integers(0, 256, (batch, img, img, 3), dtype=np.uint8)
-    labels = (rng.random((batch, img, img)) > 0.8).astype(np.uint8)
-    return images, labels
 
 
 def run_train_step(train_args, build, rng, changes, want, label, n_timed=10, batch=B,
@@ -1183,8 +1128,13 @@ def run_train_step(train_args, build, rng, changes, want, label, n_timed=10, bat
     returns the launches and the step's ms (CUDA events), device ms
     (profiler), peak GiB and the losses of the launch-count step (the
     second) and the timed ones."""
-    default_config, MSUNet, create_train_state, make_train_step = train_args
-    cfg = deployment_config(default_config, **TRAIN_CHANGES, **changes,
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools.dp_check import (
+        TRAIN_CHANGES,
+        deployment_config,
+        train_batch,
+    )
+    MSUNet, create_train_state, make_train_step = train_args
+    cfg = deployment_config(**TRAIN_CHANGES, **changes,
                             **{"DATA.IMG_SIZE": img})
     model = MSUNet.from_config(cfg)
     state = create_train_state(model, cfg)
@@ -1227,10 +1177,16 @@ def run_train_step(train_args, build, rng, changes, want, label, n_timed=10, bat
 
 def check_train_e2e(train_args, rng, changes, label):
     """A float32 train step at 512^2 batch 2, kernel path vs composed path."""
-    default_config, MSUNet, create_train_state, make_train_step = train_args
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools.dp_check import (
+        COMPOSED,
+        TRAIN_CHANGES,
+        deployment_config,
+        train_batch,
+    )
+    MSUNet, create_train_state, make_train_step = train_args
     base = {**TRAIN_CHANGES, "MODEL.DROP_PATH_RATE": 0.0, **changes}
-    cfg = deployment_config(default_config, **base)
-    plain_cfg = deployment_config(default_config, **base, **COMPOSED)
+    cfg = deployment_config(**base)
+    plain_cfg = deployment_config(**base, **COMPOSED)
     kern = MSUNet.from_config(cfg, dtype=torch.float32)
     comp = MSUNet.from_config(plain_cfg, dtype=torch.float32)
     comp.load_state_dict(kern.state_dict())
@@ -1582,7 +1538,7 @@ REMAT_GRAD_TOL = 1e-5
 def train_grads(train_args, cfg, images, labels) -> tuple:
     """One float32 train step of ``cfg``'s model from its seeded weights:
     the loss, every parameter's gradient and the state-dict keys."""
-    _, MSUNet, create_train_state, make_train_step = train_args
+    MSUNet, create_train_state, make_train_step = train_args
     model = MSUNet.from_config(cfg, dtype=torch.float32)
     state = create_train_state(model, cfg)
     t = cfg.TRAIN
@@ -1655,6 +1611,11 @@ def recomputation(train_args, build, rng, card: str) -> None:
     float32 steps against ``none``: at 512^2 b2 with drop-path on, and at
     1024^2 b2 with config.yaml's own noise (attention dropout 0.05 on the
     composed attention) under the policy its ``auto`` resolves to."""
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools.dp_check import (
+        TRAIN_CHANGES,
+        deployment_config,
+        train_batch,
+    )
     import os
 
     from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.core.config import (
@@ -1664,7 +1625,6 @@ def recomputation(train_args, build, rng, card: str) -> None:
         resolve_remat,
     )
 
-    default_config = train_args[0]
     rows = {}
     for policy, attn in REMAT_ATTN_FWD.items():
         _, stats = run_train_step(
@@ -1683,7 +1643,7 @@ def recomputation(train_args, build, rng, card: str) -> None:
     remat_at_1024(train_args, build, card)
 
     images, labels = train_batch(rng, 2)
-    check_remat_f32(train_args, {p: deployment_config(default_config, **TRAIN_CHANGES,
+    check_remat_f32(train_args, {p: deployment_config(**TRAIN_CHANGES,
                                                       **{"TPU.REMAT": p})
                                  for p in REMAT_ATTN_FWD}, images, labels, "Swin-B 512^2 b2")
     torch.cuda.empty_cache()
@@ -1894,7 +1854,6 @@ def parity_and_epoch_bench(build, card: str) -> None:
 DP_STEPS = 3            # (b) float32 steps held against one process
 DP_TIMED = 5            # (b) bf16 deployment steps timed on each rank
 DP_LR = 1e-4
-DP_LOSS_TOL = 1e-5      # tests/test_parallel.py::test_dp_matches_single_device
 DDP_LOSS_TOL = 1e-6     # (a) one rank: the DDP step is the plain step
 UNFREEZE_IMG, UNFREEZE_EPOCHS = 256, 3
 UNFREEZE_SPLIT = dict(n_fake_train=4, n_real_train=2, n_val_fake=1, n_val_real=1,
@@ -1916,24 +1875,23 @@ def step_mfu(cfg, batch: int, ms: float, n_params: int) -> float:
     return flop / (ms / 1e3) / BF16_FLOP_PER_S
 
 
-def write_config(cfg, path: str) -> str:
-    with open(path, "w") as f:
-        f.write(cfg.dump_yaml())
-    return path
-
-
 def one_rank_nccl(train_args, build, rng, run_dir: str, card: str, want: dict) -> None:
     """(a): phase 6's step (Swin-B 512^2 b8 bf16, every knob on) through
     DDP in a one-rank NCCL group beside the plain step from the same
     weights: equal launch counts and losses; ms/step, MFU and the step's
     device time by model section."""
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools.dp_check import (
+        TRAIN_CHANGES,
+        deployment_config,
+        train_batch,
+    )
     from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.parallel import mesh
     from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.utils.profiling import (
         section_times,
     )
 
-    default_config, MSUNet, create_train_state, make_train_step = train_args
-    cfg = deployment_config(default_config, **TRAIN_CHANGES)
+    MSUNet, create_train_state, make_train_step = train_args
+    cfg = deployment_config(**TRAIN_CHANGES)
     images, labels = train_batch(rng, B)
     dev = mesh.init_process_group(0, 1, "file://" + os.path.join(run_dir, "nccl"), "cuda")
     try:
@@ -1980,65 +1938,36 @@ def one_rank_nccl(train_args, build, rng, run_dir: str, card: str, want: dict) -
         mesh.destroy_process_group()
 
 
-def two_ranks_gloo(train_args, rng, run_dir: str, card: str) -> None:
+def two_ranks_gloo(rng, run_dir: str, card: str) -> None:
     """(b): two gloo ranks on the card against one process over the same
     global batches (Swin-B 512^2 float32, drop rates 0), then each rank's
     deployment step timed."""
     from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools import dp_check
 
-    default_config = train_args[0]
-    f32 = deployment_config(default_config, **{
-        **TRAIN_CHANGES, "MODEL.DROP_PATH_RATE": 0.0, "TPU.COMPUTE_DTYPE": "float32",
-        "TPU.SOFTMAX_DTYPE": "float32"})
-    bf16 = deployment_config(default_config, **TRAIN_CHANGES)
-    batches = [train_batch(rng, B) for _ in range(DP_STEPS)]
-    spec = dp_check.make_spec(write_config(f32, os.path.join(run_dir, "f32.yaml")), batches,
-                              DP_LR, device="cuda:0", backend="gloo", threads=4,
-                              timed={"cfg_path": write_config(
-                                  bf16, os.path.join(run_dir, "bf16.yaml")),
-                                     "batch": B, "steps": DP_TIMED})
+    bf16 = dp_check.deployment_config(**dp_check.TRAIN_CHANGES)
+    batches = [dp_check.train_batch(rng, B) for _ in range(DP_STEPS)]
+    spec = dp_check.make_spec(
+        dp_check.write_config(dp_check.deployment_config(**dp_check.F32),
+                              os.path.join(run_dir, "f32.yaml")),
+        batches, DP_LR, device="cuda:0", backend="gloo", threads=4,
+        timed={"cfg_path": dp_check.write_config(bf16, os.path.join(run_dir, "bf16.yaml")),
+               "batch": B, "steps": DP_TIMED})
     t0 = time.perf_counter()
     one = dp_check.run_steps(spec, device="cuda")
     torch.cuda.empty_cache()
-    t1 = time.perf_counter()
+    print(f"one process, Swin-B 512^2 f32, global batch {B}, {DP_STEPS} steps at lr "
+          f"{DP_LR:g}: {time.perf_counter() - t0:.1f} s")
     print("two ranks on one card over gloo with CUDA tensors: NCCL refuses two ranks on "
-          "one device; NCCL across two cards is not run (one card)")
-    ranks = dp_check.spawn_steps(spec, 2, os.path.join(run_dir, "ranks"))
-    t2 = time.perf_counter()
-    if ranks[0]["losses"] != ranks[1]["losses"]:
-        raise AssertionError(f"ranks report other losses: {[r['losses'] for r in ranks]}")
-    dl = max(abs(a - b) for a, b in zip(ranks[0]["losses"], one["losses"]))
-    worst, worst_name, n_far, n_all = param_agreement(ranks[0]["state_dict"],
-                                                      one["state_dict"])
-    bound = 2 * DP_LR * DP_STEPS
-    print(f"Swin-B 512^2 f32, global batch {B} ({B // 2} + {B // 2}), {DP_STEPS} steps at lr "
-          f"{DP_LR:g}: losses {ranks[0]['losses']} vs one process {one['losses']}, max "
-          f"|diff| {dl:.3e} (tol {DP_LOSS_TOL:g}); parameters max |diff| {worst:.3e} "
-          f"({worst_name}; bound 2 x lr x steps = {bound:g}: Adam moves a parameter by about "
-          f"lr a step whatever its gradient's size, so round-off can flip one near-zero "
-          f"gradient's step), {n_far} of {n_all} elements beyond 1e-5 (tol 1e-3 of them); "
-          f"one process {t1 - t0:.1f} s, two ranks {t2 - t1:.1f} s with their start")
-    if not dl <= DP_LOSS_TOL or not worst <= bound or not n_far <= 1e-3 * n_all:
-        raise AssertionError("two gloo ranks differ from one process")
+          "one device; NCCL across four cards is tools/multichip.py's (four-card machine)")
+    ranks, _ = dp_check.hold_against_one(f"two gloo ranks, global batch {B} ({B // 2} + "
+                                         f"{B // 2})", spec, 2, os.path.join(run_dir, "ranks"),
+                                         one, dp_check.PER_STEP)
+    print(f"{DP_TIMED} bf16 deployment steps 512^2 b{B} a rank (DDP, gloo, two ranks sharing "
+          f"the card):")
+    rows = dp_check.rank_rows("gloo", ranks, B, card)
     n_params = sum(v.numel() for v in one["state_dict"].values())
-    for r in ranks:
-        print(f"rank {r['rank']}: {DP_TIMED} bf16 deployment steps 512^2 b{B} a rank (DDP, "
-              f"gloo, two ranks sharing the card): {r['ms']:.2f} ms/step (CUDA events), "
-              f"{r['host_ms']:.2f} ms (host), MFU {step_mfu(bf16, B, r['ms'], n_params):.4f}, "
-              f"peak {r['peak_gib']:.2f} GiB; {card}")
-
-
-def param_agreement(got: dict, want: dict) -> tuple:
-    """``(worst |diff|, its name, elements beyond 1e-5, elements)`` of two
-    state dicts."""
-    worst, worst_name, n_far, n_all = 0.0, "", 0, 0
-    for k, w in want.items():
-        d = (got[k] - w).abs()
-        if d.max().item() > worst:
-            worst, worst_name = d.max().item(), k
-        n_far += int((d > 1e-5).sum())
-        n_all += d.numel()
-    return worst, worst_name, n_far, n_all
+    print("  MFU a rank: " + ", ".join(f"{step_mfu(bf16, B, r['ms'], n_params):.4f}"
+                                       for r in rows))
 
 
 def unfreeze_config(run_dir: str, data: str) -> str:
@@ -2121,7 +2050,7 @@ def data_parallel(train_args, build, rng, card: str, want: dict) -> None:
         one_rank_nccl(train_args, build, rng, run_dir, card, want)
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
-        two_ranks_gloo(train_args, rng, run_dir, card)
+        two_ranks_gloo(rng, run_dir, card)
         t2 = time.perf_counter()
         staged_unfreeze(run_dir, card)
         print(f"phase 14 parts: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
@@ -2138,68 +2067,45 @@ SHARD_STEPS = 3         # float32 steps held against one process
 SHARD_TIMED = 2         # steps timed on each rank
 SHARD_BATCH = 2
 SHARD_LR = 1e-4
-SHARD_LOSS_TOL = 1e-5   # tests/test_torch_tp.py, tests/test_torch_spatial.py
 SHARD_AXES = (("tensor parallel", "TPU.MODEL_AXIS", "model", {"n_model": 2}),
               ("spatial sharding", "TPU.SPATIAL_AXIS", "space", {"n_space": 2}))
 
 
-def tensor_and_spatial(train_args, rng, card: str, device: str = "cuda:0") -> None:
+def tensor_and_spatial(rng, card: str, device: str = "cuda:0") -> None:
     """Phase 15: each axis of ``SHARD_AXES`` on two gloo ranks against one
-    process (``tools/dp_check.py``)."""
+    process (``tools/dp_check.py::hold_against_one``)."""
     import shutil
 
     from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools import dp_check
 
-    default_config = train_args[0]
-    f32 = {**TRAIN_CHANGES, "MODEL.DROP_PATH_RATE": 0.0, "TPU.COMPUTE_DTYPE": "float32",
-           "TPU.SOFTMAX_DTYPE": "float32"}
     run_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "model_out",
                            "chip_smoke_phase15")
     shutil.rmtree(run_dir, ignore_errors=True)
     os.makedirs(run_dir)
     try:
-        batches = [train_batch(rng, SHARD_BATCH) for _ in range(SHARD_STEPS)]
-        plain = write_config(deployment_config(default_config, **{**f32, **COMPOSED}),
-                             os.path.join(run_dir, "composed.yaml"))
+        batches = [dp_check.train_batch(rng, SHARD_BATCH) for _ in range(SHARD_STEPS)]
+        plain = dp_check.write_config(
+            dp_check.deployment_config(**{**dp_check.F32, **dp_check.COMPOSED}),
+            os.path.join(run_dir, "composed.yaml"))
         t0 = time.perf_counter()
         one = dp_check.run_steps(dp_check.make_spec(plain, batches, SHARD_LR, device=device))
         print(f"one process, composed, Swin-B {IMG}^2 b{SHARD_BATCH} f32, {SHARD_STEPS} steps: "
               f"losses {one['losses']} in {time.perf_counter() - t0:.1f} s")
         print("tensor and spatial parallelism: two ranks on one card over gloo with CUDA "
-              "tensors (NCCL refuses two ranks on one device); NCCL across cards is not run "
-              "(one card)")
+              "tensors (NCCL refuses two ranks on one device); NCCL across four cards is "
+              "tools/multichip.py's (four-card machine)")
         for reason, key, axis, mesh_kw in SHARD_AXES:
-            path = write_config(deployment_config(default_config, **{**f32, key: axis}),
-                                os.path.join(run_dir, f"{axis}.yaml"))
+            path = dp_check.write_config(
+                dp_check.deployment_config(**{**dp_check.F32, key: axis}),
+                os.path.join(run_dir, f"{axis}.yaml"))
             spec = dp_check.make_spec(path, batches, SHARD_LR, device=device, backend="gloo",
                                       threads=4, timed={"cfg_path": path, "batch": SHARD_BATCH,
                                                         "steps": SHARD_TIMED}, **mesh_kw)
-            t0 = time.perf_counter()
-            ranks = dp_check.spawn_steps(spec, 2, os.path.join(run_dir, axis))
-            wall = time.perf_counter() - t0
-            launched = {k: v for r in ranks for k, v in r["launches"].items() if v}
-            if launched:
-                raise AssertionError(f"{reason}: kernels launched under the axis: {launched}")
-            if any(r["losses"] != ranks[0]["losses"] for r in ranks):
-                raise AssertionError(f"{reason}: ranks report other losses: "
-                                     f"{[r['losses'] for r in ranks]}")
-            dl = max(abs(a - b) for a, b in zip(ranks[0]["losses"], one["losses"]))
-            worst, worst_name, n_far, n_all = param_agreement(ranks[0]["state_dict"],
-                                                              one["state_dict"])
-            bound = 2 * SHARD_LR * SHARD_STEPS
-            print(f"{reason} ({axis} axis 2, coords {[r['coords'] for r in ranks]}), every "
-                  f"kernel knob on: kernel launches 0 (routed off); losses {ranks[0]['losses']}"
-                  f" vs one process {one['losses']}, max |diff| {dl:.3e} (tol "
-                  f"{SHARD_LOSS_TOL:g}); parameters max |diff| {worst:.3e} ({worst_name}; "
-                  f"bound 2 x lr x steps = {bound:g}), {n_far} of {n_all} elements beyond "
-                  f"1e-5 (tol 1e-3 of them); {wall:.1f} s with the ranks' start")
-            if not dl <= SHARD_LOSS_TOL or not worst <= bound or not n_far <= 1e-3 * n_all:
-                raise AssertionError(f"{reason}: two ranks differ from one process")
-            for r in ranks:
-                print(f"  {axis} rank {r['coords']}: Swin-B {IMG}^2 b{SHARD_BATCH} f32 step "
-                      f"{r['ms']:.2f} ms (CUDA events, {SHARD_TIMED} steps), {r['host_ms']:.2f} "
-                      f"ms (host), device time {r['device_ms']:.2f} ms (profiler, one step), "
-                      f"peak {r['peak_gib']:.2f} GiB; {card}")
+            ranks, _ = dp_check.hold_against_one(
+                f"{reason} ({axis} axis 2), every kernel knob on, routed off", spec, 2,
+                os.path.join(run_dir, axis), one, {})
+            print(f"  Swin-B {IMG}^2 b{SHARD_BATCH} f32 step, {SHARD_TIMED} steps:")
+            dp_check.rank_rows(axis, ranks, SHARD_BATCH, card)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
 
@@ -2304,6 +2210,10 @@ def native_decode(train_args, build, card: str, per_step: dict) -> None:
     """Phase 16: the native decoder on a synthetic 1024^2 split: (a) the decode
     rate alone, (b) the train loader alone, (c) the epoch bench at 1024^2 b2
     in each arm, (d) the LR range test over the loader at 1024^2 b2."""
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools.dp_check import (
+        TRAIN_CHANGES,
+        deployment_config,
+    )
     import shutil
 
     from semantic_segmentation_of_stylegan2_artifacts_tpu_torch import native
@@ -2324,7 +2234,7 @@ def native_decode(train_args, build, card: str, per_step: dict) -> None:
         lr_range_test,
     )
 
-    default_config, MSUNet, create_train_state, make_train_step = train_args
+    MSUNet, create_train_state, make_train_step = train_args
     root = os.path.dirname(os.path.abspath(__file__))
     cfg = load_config(os.path.join(root, "config.yaml"))
     workers = int(cfg.DATA.NUM_WORKERS)
@@ -2383,7 +2293,7 @@ def native_decode(train_args, build, card: str, per_step: dict) -> None:
             torch.cuda.empty_cache()
 
         # (d) the LR range test over the loader, bench.py's step at 1024^2 b2
-        lr_cfg = deployment_config(default_config, **TRAIN_CHANGES,
+        lr_cfg = deployment_config(**TRAIN_CHANGES,
                                    **{"DATA.IMG_SIZE": int(cfg.DATA.IMG_SIZE)})
         model = MSUNet.from_config(lr_cfg)
         state = create_train_state(model, lr_cfg)
@@ -2512,6 +2422,7 @@ def orbax_checkpoints(train_args, build, card: str, per_step: dict) -> None:
     after resuming from epoch_N.orbax against the step without the save
     (loss and parameters in bits, cuDNN deterministic), and the test CLI on
     the orbax directory against a .pth of the same weights (Score to 1e-6)."""
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools.dp_check import train_batch
     import shutil
 
     from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.cli import test_cli
@@ -2522,7 +2433,7 @@ def orbax_checkpoints(train_args, build, card: str, per_step: dict) -> None:
     from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train import checkpoint, optim
 
     orbax_fixture(card)
-    _, MSUNet, create_train_state, make_train_step = train_args
+    MSUNet, create_train_state, make_train_step = train_args
     root = os.path.dirname(os.path.abspath(__file__))
     run_dir = os.path.join(root, "model_out", "chip_smoke_phase17")
     shutil.rmtree(run_dir, ignore_errors=True)
@@ -2658,9 +2569,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
-        from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.core.config import (
-            default_config,
-        )
         from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import (
             MSUNet,
         )
@@ -2680,6 +2588,11 @@ def main() -> int:
             create_train_state,
             make_predict_step,
             make_train_step,
+        )
+        from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools.dp_check import (
+            COMPOSED,
+            PER_STEP,
+            deployment_config,
         )
     except ImportError as e:
         print(f"chip_smoke: the port package is not beside this script: {e}",
@@ -2716,7 +2629,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     with phase(3, "Swin-B predict path"):
-        cfg = deployment_config(default_config)
+        cfg = deployment_config()
         t0 = time.perf_counter()
         model = MSUNet.from_config(cfg)
         n_params = sum(p.numel() for p in model.parameters())
@@ -2753,7 +2666,7 @@ def main() -> int:
 
     with phase(4, "f32 logits, kernel path against the composed path"):
         kern = MSUNet.from_config(cfg, dtype=torch.float32)
-        comp = MSUNet.from_config(deployment_config(default_config, **COMPOSED),
+        comp = MSUNet.from_config(deployment_config(**COMPOSED),
                                   dtype=torch.float32)
         comp.load_state_dict(kern.state_dict())
         x = torch.from_numpy(images[:2]).cuda().float() / 255.0
@@ -2783,18 +2696,15 @@ def main() -> int:
                               fused_head, window_attention, gen)
         torch.cuda.empty_cache()
 
-    train_args = (default_config, MSUNet, create_train_state, make_train_step)
+    train_args = (MSUNet, create_train_state, make_train_step)
     with phase(6, "Swin-B train step, every knob on, then FUSED_PATCH off"):
         # 48 backwards for 52 forwards: the last stage of each cent decoder (2 +
         # 2 blocks) feeds nothing the loss reads (the reference drops its
         # output), so autograd runs no backward through it.  Every merge and
         # expand has a backward: cent decoder 2's expand feeds skip 0, cent
         # decoder 1's two feed skips 1 and 0, the main decoder's three the head.
-        launches, _ = run_train_step(
-            train_args, _build, rng, {}, expect(
-                _build, window_attention=52, window_attention_bwd=48, patch_merge=3,
-                patch_merge_bwd=3, patch_expand=6, patch_expand_bwd=6, refine_head_res=1,
-                refine_head_bwd=1), "Swin-B")
+        launches, _ = run_train_step(train_args, _build, rng, {}, expect(_build, **PER_STEP),
+                                     "Swin-B")
         for r in (attn_bwd, res, bwd, merge_bwd, expand_bwd):
             r.row["launches"] = launches[r.row["name"]]
         phase6_launches = launches
@@ -2809,7 +2719,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     with phase(8, "Swin-T predict, train step and f32 train check"):
-        cfg = deployment_config(default_config, **SWIN_T)
+        cfg = deployment_config(**SWIN_T)
         model = MSUNet.from_config(cfg)
         print(f"Swin-T model: {sum(p.numel() for p in model.parameters())} params, head "
               f"GELU+depth-to-space kernel {model.ms_unet.up.fused_gelu_d2s}")
@@ -2852,7 +2762,7 @@ def main() -> int:
 
     with phase(15, "tensor and spatial parallelism"):
         t0 = time.perf_counter()
-        tensor_and_spatial(train_args, rng, card)
+        tensor_and_spatial(rng, card)
         print(f"phase 15: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 

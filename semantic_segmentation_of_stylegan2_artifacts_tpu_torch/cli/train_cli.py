@@ -17,7 +17,9 @@ process each.  Started as above, the CLI spawns the k ranks itself (rank
 ``r`` on ``cuda:r`` over NCCL; ``--device cpu`` over gloo; ``--device
 cuda:0 --dist_backend gloo`` puts every rank on one card, which NCCL
 refuses).  Under ``torchrun --nproc_per_node k`` it reads its rank from the
-environment instead.  Rank 0 alone writes the run directory.
+environment instead.  Rank 0 alone writes the run directory; the other
+ranks print their log lines (``rank_sync``, ``epoch_timing``) on standard
+output, each behind ``rank <r>:``.
 """
 
 from __future__ import annotations
@@ -138,9 +140,13 @@ def _run(args, config, rank: int, world: int, init_method=None, local_rank: int 
         os.makedirs(output_dir, exist_ok=True)
         shutil.copy(args.cfg, os.path.join(output_dir, "config_used.yaml"))
         log = file_logger("train", output_dir)
-    else:  # only rank 0 writes the run directory
+    else:  # only rank 0 writes the run directory; the others log to stdout
         log = logging.getLogger(f"train.rank{rank}")
         log.propagate = False
+        log.setLevel(logging.INFO)
+        handler = logging.StreamHandler(sys.stdout)
+        handler.setFormatter(logging.Formatter(f"rank {rank}: %(message)s"))
+        log.addHandler(handler)
     try:
         log.info(f"date: {timestamp}")
         seed = int(config.SEED)
@@ -160,8 +166,7 @@ def _run(args, config, rank: int, world: int, init_method=None, local_rank: int 
         result = trainer(model, log, writer, output_dir, config, config.TRAIN.BASE_LR,
                          state=state, resume_from=args.resume)
     finally:
-        if main_rank:
-            close_logger(log)
+        close_logger(log)
         if world > 1:
             destroy_process_group()
     if main_rank:

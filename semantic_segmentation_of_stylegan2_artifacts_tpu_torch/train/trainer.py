@@ -16,10 +16,11 @@ Input batches are copied to the device from pinned host memory with
 ``DataLoader(pin_memory=True)``).  A kernel failure on the card raises out
 of the trainer: there is no fallback to the composed path.
 
-Each epoch logs one ``epoch_timing {json}`` line: the epoch's host seconds,
-the host seconds the steps waited for the train loader, the steps, the
-validation's seconds and cases, and this process's image decodes of the
-epoch, native and PIL (``native.DECODES``).
+Each epoch logs one ``epoch_timing {json}`` line on every rank: the rank,
+the epoch's host seconds, the host seconds the steps waited for the train
+loader, the steps, the validation's seconds and cases (rank 0's; 0 on the
+others), and this process's image decodes of the epoch, native and PIL
+(``native.DECODES``).
 
 Data parallelism (JAX ``train/trainer.py``'s mesh): ``HARDWARE.N_GPU``
 sampler pairs make one global batch a step.  When a process group is up
@@ -381,13 +382,16 @@ def trainer(model, logger, writer, log_save_path: str = "", config=None,
                     output_num=int(config.SHOW_PREDICTIONS),
                     mean_train_loss=mean_train_loss, logger=logger,
                     csv_handler=csv_handler, num_classes=num_classes)
-                logger.info("epoch_timing " + json.dumps({
-                    "epoch": epoch_num + 1, "train_s": epoch_time, "steps": n_batches,
-                    "loader_wait_s": loader_wait[0], "val_s": time.perf_counter() - t0,
-                    "val_cases": len(valloader),
-                    "decodes": {k: v - decodes[k] for k, v in native.DECODES.items()}}))
             else:
                 output_dict, score = [], float("nan")
+            # every rank's: its steps, loader wait and decodes (rank 0 alone
+            # validates)
+            logger.info("epoch_timing " + json.dumps({
+                "epoch": epoch_num + 1, "rank": rank, "train_s": epoch_time,
+                "steps": n_batches, "loader_wait_s": loader_wait[0],
+                "val_s": time.perf_counter() - t0 if is_main else 0.0,
+                "val_cases": len(valloader) if is_main else 0,
+                "decodes": {k: v - decodes[k] for k, v in native.DECODES.items()}}))
             if distributed:
                 score = broadcast_float(score)
 

@@ -13,6 +13,9 @@
   ``tools/perf_breakdown.py`` (one jitted section at a time, timed by a
   host sync), ``tools/hlo_breakdown.py`` and ``utils/hlo_analysis.py``,
   which read XLA's compiled programs and have no other counterpart here.
+* :func:`kernel_times`: device ms and launches of each kernel name in one
+  call (the collectives' ``nccl*`` kernels among them).  Both it and
+  :func:`section_times` leave the card's copies of annotated ranges out.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -91,6 +94,16 @@ def trace(log_dir: Optional[str]):
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+def _card_events(prof) -> list:
+    """The card's kernels and copies in a profile.  The card's copies of
+    annotated ranges (the optimizer's, DDP's, :func:`section_times`') are
+    left out: they overlap the kernels they hold, which would count twice."""
+    from torch.autograd import DeviceType
+
+    return [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)]
+
+
 def _event_ms(ev, on_device: bool) -> float:
     return (ev.device_time_total if on_device else ev.cpu_time_total) / 1e3
 
@@ -137,14 +150,11 @@ def section_times(fn: Callable[[], object], model: torch.nn.Module,
         for h in hooks:
             h.remove()
     out = {name: 0.0 for name in names}
-    total = 0.0
+    # every kernel and copy of the call, the backward's (run on autograd's
+    # own thread, outside the host's ranges) included
+    total = sum(ev.device_time_total for ev in _card_events(prof)) / 1e3 if on_device \
+        else 0.0
     for ev in prof.events():
-        if on_device and ev.device_type == DeviceType.CUDA \
-                and not getattr(ev, "is_user_annotation", False):
-            # every kernel and copy of the call, the backward's (run on
-            # autograd's own thread, outside the host's ranges) included;
-            # not the card's copies of annotated ranges, which overlap them
-            total += ev.device_time_total / 1e3
         # a section is the host's range with its kernels summed in; the
         # card's copy of an annotation is left out, or it would count twice
         if ev.device_type != DeviceType.CPU or not ev.name.startswith(prefix):
@@ -158,3 +168,33 @@ def section_times(fn: Callable[[], object], model: torch.nn.Module,
     out["total"] = total
     return out
 
+
+PROFILE_PAD_S = 0.05  # host seconds before and after the work in a profile
+
+
+def kernel_times(fn: Callable[[], object], device=None) -> List[Tuple[float, int, str]]:
+    """``(device ms, launches, name)`` of every kernel and copy that one
+    ``fn()`` call runs on the card ``device`` (default: the current one),
+    by one profile, in order of first launch (the collectives' ``nccl*``
+    kernels among them)."""
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None \
+        else torch.device(device)
+    with torch.cuda.device(dev):
+        torch.cuda.synchronize()
+        with trace(None) as prof:
+            # the profiler keeps only the device events whose times, moved
+            # onto the host's clock, fall inside its window, and on the H100
+            # that move has been seen 3-4 ms off, losing a call's first
+            # launches or all of them: keep the card's work well inside
+            time.sleep(PROFILE_PAD_S)
+            torch.zeros(1, device=dev)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+    rows: Dict[str, List] = {}
+    for ev in _card_events(prof):
+        row = rows.setdefault(ev.name, [0.0, 0])
+        row[0] += ev.device_time_total / 1e3
+        row[1] += 1
+    return [(ms, n, name) for name, (ms, n) in rows.items()]

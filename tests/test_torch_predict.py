@@ -135,7 +135,7 @@ from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.core import yaml_edi
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch import native
 assert native.available()
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools import (
-    ckpt_inspect, dataset_check, dp_check, epoch_bench, parity_vs_deploy)
+    ckpt_inspect, dataset_check, dp_check, epoch_bench, multichip, parity_vs_deploy)
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train import (
     checkpoint, lr_range, ocdbt, optim, orbax, trainer, zarr)
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.native import zstd
