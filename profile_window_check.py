@@ -6,8 +6,9 @@
 On one NVIDIA GPU: builds the port's kernels, then profiles five
 back-to-back bfloat16 patch merges at the Swin-T shape x (8, 64, 64, 192)
 ``--profiles`` times with no host padding and as many times with
-``chip_smoke.PROFILE_PAD_S`` of host sleep at both ends of each profile
-(what ``chip_smoke.kernel_times`` does), and prints how many profiles lost
+``PROFILE_PAD_S`` (the port's ``utils/profiling.py``) of host sleep at both
+ends of each profile (what that module's ``kernel_times`` does, which
+``chip_smoke.kernel_times`` calls), and prints how many profiles lost
 launches in each.  For a profile that lost some it prints where the kept
 kernels landed against the host ops that launched them (microseconds from
 the profile's start): the profiler moves device times onto the host's
@@ -61,6 +62,9 @@ def main() -> int:
     import chip_smoke as cs
     from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.ops import _build
     from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.ops import fused_patch as fp
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.utils.profiling import (
+        PROFILE_PAD_S,
+    )
 
     print(f"card: {cs.card_line()}; torch {torch.__version__}", flush=True)
     _build.library()
@@ -74,7 +78,7 @@ def main() -> int:
     run = runs[MERGE_SHAPES[0]]
     run()
     reps = 5
-    for pad_s in (0.0, cs.PROFILE_PAD_S):
+    for pad_s in (0.0, PROFILE_PAD_S):
         lost = empty = 0
         t0 = time.perf_counter()
         for _ in range(args.profiles):

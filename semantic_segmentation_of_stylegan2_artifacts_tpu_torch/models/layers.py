@@ -310,7 +310,10 @@ class SwinBlock(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    """Conv k=4 s=4 patchify + LayerNorm; ``(B,H,W,3) -> (B,H/4,W/4,E)``."""
+    """Conv k=4 s=4 patchify + LayerNorm; ``(B,H,W,3) -> (B,H/4,W/4,E)``.
+    An empty slab (``H == 0``, a space rank with no pixel rows) runs the
+    conv on one zero patch row and keeps none of it: every parameter stays
+    in the graph and gets a zero gradient, as on the ranks with rows."""
 
     def __init__(self, patch_size: int, in_chans: int, embed_dim: int,
                  patch_norm: bool, dtype: torch.dtype):
@@ -320,7 +323,12 @@ class PatchEmbed(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rows = x.shape[1]
+        if rows == 0:  # a conv takes at least one kernel's rows
+            x = x.new_zeros((x.shape[0], self.proj.kernel_size[0]) + tuple(x.shape[2:]))
         x = conv_nhwc(x, self.proj, self.dtype)
+        if rows == 0:
+            x = x[:, :0]
         return self.norm(x) if self.norm is not None else x
 
 

@@ -20,7 +20,7 @@ H-slab layout and its halos are explicit, built on one primitive:
 
 A stage's slab is window-aligned on its padded grid
 (:func:`window_slabs`): rank ``s`` holds a run of window rows, which may be
-empty at a deep stage.  On it, :func:`window_attention` fetches the rolled
+empty at any stage.  On it, :func:`window_attention` fetches the rolled
 rows of its windows in place of ``torch.roll`` and fetches back for the
 un-roll; :func:`merge_rows` and :func:`expand_rows` re-slab at the stage
 boundaries; :func:`halo_conv` runs the head's 3x3 convs with one fetched
@@ -318,19 +318,12 @@ def halo_conv(space: SpaceShard, x: torch.Tensor, slabs: Slabs, conv: torch.nn.C
 def attach_space(model: torch.nn.Module, group) -> SpaceShard:
     """Give a model built with ``spatial_axis`` (``TPU.SPATIAL_AXIS``) the
     ``space`` group: every module with a ``space`` attribute gets this
-    rank's :class:`SpaceShard`.  Raises where stage 0 has fewer windows of
-    rows than the group has ranks: a rank with no pixel rows cannot run the
-    patch embedding's convolution (JAX's sharding pads such a map instead)."""
+    rank's :class:`SpaceShard`."""
     sys = getattr(model, "ms_unet", model)
     if not sys.spatial_axis:
         raise ValueError("attach_space needs a model built with spatial_axis "
                          "(TPU.SPATIAL_AXIS): the kernels take whole maps")
     space = SpaceShard(group, sys.window_size)
-    grid = sys.img_size // sys.patch_size
-    bounds = space.slabs(grid).bounds
-    if any(lo == hi for lo, hi in bounds):
-        raise ValueError(f"{space.size} space ranks at {sys.img_size}^2: stage 0's {grid} rows "
-                         f"in windows of {sys.window_size} leave a rank no rows {bounds}")
     for mod in model.modules():
         if hasattr(mod, "space"):
             mod.space = space

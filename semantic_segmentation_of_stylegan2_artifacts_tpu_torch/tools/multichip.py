@@ -28,7 +28,11 @@ starts, then runs its four arms in this order, rank ``r`` on ``cuda:r``:
   rows pad to 3 windows, so one of four slabs is empty): Swin-B 512^2 b2
   f32, 3 steps, against one process's composed step to the same
   tolerances; no kernel launched (the axis routes them off, as in JAX);
-  each rank's ms a step, device time and peak memory.
+  each rank's ms a step, device time and peak memory.  The space arm
+  then runs 1 x 1 x 4 at 64^2 against one process's step at 64^2: stage
+  0's 16 rows make 3 windows of 7, so rank 3 holds no rows at any stage
+  and runs the patch embedding, every block, the merges, the expands and
+  the head's halo convs on empty slabs.
 * ``cli``: ``config.yaml`` with ``HARDWARE.N_GPU: 4``, one epoch on a
   synthetic 1024^2 split, through ``python -m ...cli.train_cli`` (four NCCL
   ranks, 2 images a card), then ``python -m ...cli.test_cli`` on its best
@@ -66,9 +70,13 @@ from . import dp_check
 PKG = __package__.rsplit(".", 1)[0]
 ROOT = Path(__file__).resolve().parents[2]
 WORLD = 4
-# (n_data, n_model, n_space) of each arm's meshes (JAX's rank layout)
-MESHES = {"data": ((4, 1, 1),), "model": ((2, 2, 1), (1, 4, 1)),
-          "space": ((2, 1, 2), (1, 1, 4))}
+DEPLOY_IMG = dp_check.DEPLOY_IMG
+EMPTY_IMG = 64  # 1 x 1 x 4 at 64^2: space rank 3 holds no rows at any stage
+# (n_data, n_model, n_space, image side) of each arm's meshes (JAX's rank
+# layout)
+MESHES = {"data": ((4, 1, 1, DEPLOY_IMG),),
+          "model": ((2, 2, 1, DEPLOY_IMG), (1, 4, 1, DEPLOY_IMG)),
+          "space": ((2, 1, 2, DEPLOY_IMG), (1, 1, 4, DEPLOY_IMG), (1, 1, 4, EMPTY_IMG))}
 AXIS_KEYS = {"model": "TPU.MODEL_AXIS", "space": "TPU.SPATIAL_AXIS"}
 # seconds a spawn of the ranks (or a CLI process) may take before it counts
 # as hung: its ranks are killed and the arm fails
@@ -94,21 +102,21 @@ def mesh_name(mesh: Sequence[int]) -> str:
 
 
 def arm_meshes(arm: str) -> List[Dict]:
-    """Each mesh of ``arm``: its axes and every rank's ``(data, model,
-    space)`` coordinates, ``rank = (d * n_model + m) * n_space + s``."""
+    """Each mesh of ``arm``: its axes, image side and every rank's ``(data,
+    model, space)`` coordinates, ``rank = (d * n_model + m) * n_space + s``."""
     from ..parallel.mesh import mesh_coords
 
     out = []
-    for n_data, n_model, n_space in MESHES[arm]:
+    for n_data, n_model, n_space, img in MESHES[arm]:
         world = n_data * n_model * n_space
         if world != WORLD:
             raise ValueError(f"{arm} mesh {n_data}x{n_model}x{n_space} has {world} ranks")
-        out.append({"n_data": n_data, "n_model": n_model, "n_space": n_space,
+        out.append({"n_data": n_data, "n_model": n_model, "n_space": n_space, "img": img,
                     "coords": [mesh_coords(r, n_model, n_space) for r in range(world)]})
     return out
 
 
-def stage_slabs(n_space: int, img: int = dp_check.DEPLOY_IMG, patch: int = 4,
+def stage_slabs(n_space: int, img: int = DEPLOY_IMG, patch: int = 4,
                 window: int = 7) -> List[Tuple[Tuple[int, int], ...]]:
     """Each encoder stage's H-slabs (global rows a space rank holds) at
     ``img``^2 (``parallel/spatial.py::window_slabs``)."""
@@ -184,7 +192,7 @@ def data_arm(workdir: str, card: str) -> Dict:
     t1 = time.perf_counter()
     single = [dp_check.time_steps(bf16, TIMED_BATCH, TIMED_STEPS, "cuda:0")]
     torch.cuda.empty_cache()
-    print(f"data 4x1x1 over NCCL, Swin-B {dp_check.DEPLOY_IMG}^2 f32, every kernel knob "
+    print(f"data 4x1x1 over NCCL, Swin-B {DEPLOY_IMG}^2 f32, every kernel knob "
           f"on, global batch {DATA_BATCH} ({DATA_BATCH // WORLD} a rank), {STEPS} steps at "
           f"lr {LR:g} (f32 steps), then bench.py's bf16 step timed; one process on cuda:0 "
           f"{t1 - t0:.1f} s; {card}")
@@ -195,7 +203,7 @@ def data_arm(workdir: str, card: str) -> Dict:
     torch.cuda.empty_cache()
     out = {"arm": "data", "mesh": "4x1x1", "card": card, **agreement}
     print(f"bench.py's deployment step, bf16, f32 parameters, drop-path 0.1, "
-          f"{dp_check.DEPLOY_IMG}^2 b{TIMED_BATCH} a rank, {TIMED_STEPS} steps:")
+          f"{DEPLOY_IMG}^2 b{TIMED_BATCH} a rank, {TIMED_STEPS} steps:")
     out["ranks"] = dp_check.rank_rows("data 4x1x1", ranks, TIMED_BATCH, card)
     kernels = ranks[0]["nccl"]
     print_nccl(kernels)
@@ -217,38 +225,51 @@ def data_arm(workdir: str, card: str) -> Dict:
     return out
 
 
-def shard_arm(arm: str, workdir: str, card: str) -> Dict:
-    """The model or space axis: each mesh against one process's composed
-    step; no kernel launched; each rank's timed step."""
-    rng = np.random.default_rng(1)
-    batches = [dp_check.train_batch(rng, SHARD_BATCH) for _ in range(STEPS)]
+def one_process(arm: str, img: int, workdir: str, rng: np.random.Generator) -> Tuple:
+    """The global batches at ``img``^2, the axis config's path and one
+    process's composed steps on ``cuda:0`` over those batches."""
+    batches = [dp_check.train_batch(rng, SHARD_BATCH, img) for _ in range(STEPS)]
+    changes = {**dp_check.F32, "DATA.IMG_SIZE": img}
     plain = dp_check.write_config(
-        dp_check.deployment_config(**{**dp_check.F32, **dp_check.COMPOSED}),
-        os.path.join(workdir, f"{arm}_composed.yaml"))
+        dp_check.deployment_config(**{**changes, **dp_check.COMPOSED}),
+        os.path.join(workdir, f"{arm}_{img}_composed.yaml"))
     path = dp_check.write_config(
-        dp_check.deployment_config(**{**dp_check.F32, AXIS_KEYS[arm]: arm}),
-        os.path.join(workdir, f"{arm}.yaml"))
+        dp_check.deployment_config(**{**changes, AXIS_KEYS[arm]: arm}),
+        os.path.join(workdir, f"{arm}_{img}.yaml"))
     t0 = time.perf_counter()
     one = dp_check.run_steps(dp_check.make_spec(plain, batches, LR, device="cuda:0"))
     torch.cuda.empty_cache()
-    print(f"{arm} axis: one process on cuda:0, composed, Swin-B {dp_check.DEPLOY_IMG}^2 "
-          f"b{SHARD_BATCH} f32, {STEPS} steps in {time.perf_counter() - t0:.1f} s")
+    print(f"{arm} axis: one process on cuda:0, composed, Swin-B {img}^2 b{SHARD_BATCH} f32, "
+          f"{STEPS} steps in {time.perf_counter() - t0:.1f} s")
+    return batches, path, one
+
+
+def shard_arm(arm: str, workdir: str, card: str) -> Dict:
+    """The model or space axis: each mesh against one process's composed
+    step at its image size; no kernel launched; each rank's timed step."""
+    rng = np.random.default_rng(1)
     out = {"arm": arm, "card": card, "meshes": []}
+    ones: Dict[int, Tuple] = {}
     for mesh in arm_meshes(arm):
+        img = mesh["img"]
+        if img not in ones:
+            ones[img] = one_process(arm, img, workdir, rng)
+        batches, path, one = ones[img]
         name = mesh_name((mesh["n_data"], mesh["n_model"], mesh["n_space"]))
+        label = f"{arm} {name} {img}^2 over NCCL"
         if mesh["n_space"] > 1:
-            print(f"  {name}: each stage's H-slabs at {dp_check.DEPLOY_IMG}^2 (rows a space "
-                  f"rank holds): {stage_slabs(mesh['n_space'])}")
+            print(f"  {name}: each stage's H-slabs at {img}^2 (rows a space rank holds): "
+                  f"{stage_slabs(mesh['n_space'], img)}")
         spec = arm_spec(path, batches, mesh, {"cfg_path": path, "batch": SHARD_BATCH,
                                               "steps": SHARD_TIMED})
-        print(f"{arm} {name} over NCCL, Swin-B {dp_check.DEPLOY_IMG}^2 global batch "
-              f"{SHARD_BATCH} f32, every kernel knob on, which the axis routes off; {card}")
+        print(f"{label}, Swin-B global batch {SHARD_BATCH} f32, every kernel knob on, which "
+              f"the axis routes off; {card}")
         ranks, agreement = dp_check.hold_against_one(
-            f"{arm} {name} over NCCL", spec, WORLD, os.path.join(workdir, f"{arm}_{name}"), one,
-            {}, ARM_TIMEOUT_S[arm])
-        row = {"mesh": name, **agreement}
+            label, spec, WORLD, os.path.join(workdir, f"{arm}_{name}_{img}"), one, {},
+            ARM_TIMEOUT_S[arm])
+        row = {"mesh": name, "img": img, **agreement}
         print(f"  each rank's step, {SHARD_BATCH} rows a data shard, {SHARD_TIMED} steps:")
-        row["ranks"] = dp_check.rank_rows(f"{arm} {name}", ranks, SHARD_BATCH, card)
+        row["ranks"] = dp_check.rank_rows(f"{arm} {name} {img}^2", ranks, SHARD_BATCH, card)
         print_nccl(ranks[0]["nccl"])
         out["meshes"].append(row)
     return out

@@ -1,10 +1,12 @@
 """The four-card check (``tools/multichip.py``) and the NCCL branches of the
 port's parallel code, on the CPU.
 
-* The check's arms as pure functions: its four meshes (data 4x1x1, model
-  2x2x1 and 1x4x1, space 2x1x2 and 1x1x4), each rank's coordinates against
-  the JAX package's ``make_mesh`` over four devices, and the H-slabs at
-  512^2 (stage 3's 16 rows in 3 windows: one of four slabs empty); the
+* The check's arms as pure functions: its six meshes (data 4x1x1, model
+  2x2x1 and 1x4x1, space 2x1x2 and 1x1x4 at 512^2, 1x1x4 at 64^2), each
+  rank's coordinates against the JAX package's ``make_mesh`` over four
+  devices, and the H-slabs at 512^2 (stage 3's 16 rows in 3 windows: one
+  of four slabs empty) and at 64^2 (space rank 3 empty at every stage);
+  ``attach_space`` on meshes whose slabs are empty from stage 0 on; the
   interconnect read from ``nvidia-smi topo -m``'s matrix.
 * No fallback: with fewer than four cards (here none) or without NCCL the
   check raises before any process group, and its ranks ask for NCCL on the
@@ -15,8 +17,9 @@ port's parallel code, on the CPU.
   (``tools/dp_check.py::hold_against_one``): two gloo ranks on the CPU
   against one process pass it, and other losses, launches or
   coordinates fail it; ``rank_rows``' busy share leaves the NCCL kernels
-  out; ``utils/profiling.py``'s one rule for the card's events (annotated
-  ranges left out).
+  out; ``tools/dp_check.py::time_steps``' keys, with the card's events,
+  memory reads and profile stubbed; ``utils/profiling.py``'s one rule for
+  the card's events (annotated ranges left out).
 * The NCCL branches' arithmetic: inside four ``gloo`` ranks with
   ``dist.get_backend`` patched to ``"nccl"``, ``spatial._all_to_all``
   (through ``fetch_rows`` forward and backward, an empty slab's zero-count
@@ -28,6 +31,7 @@ port's parallel code, on the CPU.
   output), each counting its native decodes.
 """
 
+import contextlib
 import inspect
 import json
 import os
@@ -69,8 +73,10 @@ def test_meshes_take_jax_layout(arm, index):
 
 
 def test_the_meshes_cover_every_axis():
-    assert {m for ms in multichip.MESHES.values() for m in ms} == {
+    assert {m[:3] for ms in multichip.MESHES.values() for m in ms} == {
         (4, 1, 1), (2, 2, 1), (1, 4, 1), (2, 1, 2), (1, 1, 4)}
+    assert [m["img"] for m in multichip.arm_meshes("space")] == [512, 512, 64]
+    assert {m[3] for arm in ("data", "model") for m in multichip.MESHES[arm]} == {512}
 
 
 @pytest.mark.parametrize("n_space,want", [
@@ -93,25 +99,35 @@ def test_stage_slabs_at_512(n_space, want):
         assert plan.size == 0 and sum(plan.send_counts) == 0 and plan.remote
 
 
-@pytest.mark.parametrize("img,n_space,raises", [(32, 4, True), (32, 2, False), (128, 4, False),
-                                                (512, 4, False)])
-def test_attach_space_refuses_a_rank_without_rows(img, n_space, raises, monkeypatch):
-    """Four space ranks at 32^2 (stage 0: 8 rows, two windows of 4) would
-    leave two ranks no pixel rows, where the patch embedding's convolution
-    fails on the ranks' first step: ``attach_space`` raises first, naming
-    the slabs.  Stage 3's empty slab at 512^2 is allowed (its blocks run on
-    zero rows)."""
+@pytest.mark.parametrize("img,n_space,empty", [
+    (32, 4, [[2, 3], [1, 2, 3], [1, 2, 3], [1, 2, 3]]),
+    (32, 2, [[], [1], [1], [1]]),
+    (128, 4, [[], [3], [2, 3], [1, 2, 3]]),
+    (512, 4, [[], [], [], [3]]),
+    (multichip.EMPTY_IMG, 4, [[3], [2, 3], [1, 2, 3], [1, 2, 3]]),
+])
+def test_attach_space_reports_the_empty_slabs(img, n_space, empty, monkeypatch):
+    """``attach_space`` takes every mesh, also where a rank holds no pixel
+    rows: four space ranks at 32^2 (JAX's data 2 x space 4 model; stage 0's
+    8 rows make two windows of 4) leave ranks 2 and 3 empty from stage 0
+    on, as 512^2 leaves rank 3 empty at stage 3 and the space arm's 64^2
+    mesh (stage 0's 16 rows in 3 windows of 7) at every stage.  Every
+    module of the model gets the group's shard, whose slabs say which ranks
+    are empty, as the tool's ``stage_slabs`` prints them."""
     from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import MSUNet
 
     monkeypatch.setattr(spatial.dist, "get_world_size", lambda group=None: n_space)
-    monkeypatch.setattr(spatial.dist, "get_rank", lambda group=None: 0)
+    monkeypatch.setattr(spatial.dist, "get_rank", lambda group=None: n_space - 1)
     model = MSUNet(img_size=img, embed_dim=8, depths=(1, 1, 1, 1), num_heads=(2,) * 4,
                    window_size=4 if img == 32 else 7, spatial_axis="space")
-    if raises:
-        with pytest.raises(ValueError, match=r"4 space ranks at 32\^2: stage 0's 8 rows"):
-            spatial.attach_space(model, None)
-    else:
-        assert spatial.attach_space(model, None).size == n_space
+    space = spatial.attach_space(model, None)
+    assert (space.size, space.rank) == (n_space, n_space - 1)
+    assert all(m.space is space for m in model.modules() if hasattr(m, "space"))
+    grids = [img // 4 >> i for i in range(4)]
+    assert [[s for s, (lo, hi) in enumerate(space.slabs(g).bounds) if lo == hi]
+            for g in grids] == empty
+    if img != 32:
+        assert multichip.stage_slabs(n_space, img) == [space.slabs(g).bounds for g in grids]
 
 
 def test_link_kinds_reads_the_topology_matrix():
@@ -239,6 +255,57 @@ def test_rank_rows_leave_the_nccl_kernels_out_of_busy(capsys):
                                                                      (1, 11.0, 80.0)]
     assert rows[0]["busy"] == pytest.approx(0.8) and rows[1]["busy"] == pytest.approx(0.79)
     assert capsys.readouterr().out.count("of which NCCL kernels") == 2
+
+
+def test_time_steps_keys_on_a_tiny_config(tmp_path, monkeypatch):
+    """``time_steps`` on the CPU with the card's parts stubbed: CUDA events
+    that read 12 ms a step, the memory reads, and a profile of one
+    step that shows a GEMM and two NCCL kernels.  It warms up once, times
+    ``steps`` steps, profiles one more, and splits the collectives out."""
+    path = tmp_path / "tiny.yaml"
+    path.write_text(TINY)
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            pass
+
+        def record(self):
+            pass
+
+        def elapsed_time(self, end):
+            return 12.0 * 3  # three steps
+
+    profiled = []
+
+    def kernel_times(fn, device=None):
+        profiled.append((float(fn()), device))
+        return [(4.0, 3, "gemm"), (1.5, 2, "ncclDevKernel_AllReduce_Sum_f32"),
+                (0.5, 1, "ncclDevKernel_Broadcast")]
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 3 * 2**29)
+    monkeypatch.setattr(profiling, "kernel_times", kernel_times)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = dp_check.time_steps(str(path), 2, 3, "cpu")
+    finally:
+        torch.set_num_threads(n)
+    assert set(out) == {"ms", "host_ms", "peak_gib", "timed_launches", "timed_losses",
+                        "device_ms", "nccl"}
+    assert out["ms"] == 12.0 and out["host_ms"] > 0 and out["peak_gib"] == 1.5
+    assert out["timed_launches"] == {k: 0 for k in out["timed_launches"]}
+    assert len(out["timed_losses"]) == 3 and all(np.isfinite(out["timed_losses"]))
+    assert out["device_ms"] == 6.0
+    assert out["nccl"] == {"ncclDevKernel_AllReduce_Sum_f32": (1.5, 2),
+                           "ncclDevKernel_Broadcast": (0.5, 1)}
+    assert len(profiled) == 1 and np.isfinite(profiled[0][0])
+    assert profiled[0][1] == torch.device("cpu")
+    row, = dp_check.rank_rows("tiny", [dict(out, coords=(0, 0, 0))], 2, "card")
+    assert row["nccl_ms"] == 2.0 and row["busy"] == pytest.approx(4.0 / 12.0)
 
 
 def test_card_events_leave_annotations_out():

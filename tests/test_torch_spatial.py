@@ -1,5 +1,6 @@
 """Spatial sharding: the port's H-slab exchange, and its dp x sp train step
-over 2 x 2 ``gloo`` ranks against the JAX package's step, on the CPU.
+over 2 x 2 and 2 x 4 ``gloo`` ranks against the JAX package's step, on the
+CPU.
 
 In-process: the exchange plan of ``parallel/spatial.py`` (pure), and
 ``pack`` / ``unpack`` / ``pack_back`` / ``unpack_back`` routed between
@@ -9,11 +10,16 @@ empty slabs, rows asked for by several ranks), forward in bits and
 backward against autograd of the plain slicing to 1e-12 in float64; the
 window-aligned slabs of
 Swin-B's 512^2 grids and of the small models below; a spatial forward with
-no space group raises.
+no space group raises; the patch embedding on an empty slab (a space rank
+with no pixel rows) keeps its parameters in the graph with zero gradients,
+and the train step's one space-group gradient buffer lists every trainable
+parameter on an empty rank as on a rank with rows (the other ranks'
+rows emulated as zeros).
 
 Spawned (``tools/dp_check.py::spawn_steps``, ranks ``(d, s)`` = ``(0, 0),
-(0, 1), (1, 0), (1, 1)``, the port's YAML with ``TPU.SPATIAL_AXIS: space``
-and every kernel knob on, which the axis routes off), from the JAX init
+(0, 1), (1, 0), (1, 1)``, or ``(0, 0)`` to ``(1, 3)`` with four space
+ranks, the port's YAML with ``TPU.SPATIAL_AXIS: space`` and every kernel
+knob on, which the axis routes off), from the JAX init
 through the weight bridge, drop rates 0, global batch 4 (2 a data rank),
 against JAX's step on the whole batch (JAX
 ``tests/test_parallel.py::test_spatial_sharded_step_matches_unsharded``
@@ -21,15 +27,20 @@ holds its spatial step to that one to 2e-5):
 
 * JAX ``test_parallel.py``'s model (32^2, embed 16, depths 1/1/1/1, heads
   2, window 4): the stage grids 8/4/2/1 pad to 8/4/4/4, so at stages 1-3
-  space rank 1 holds zero rows; the loss to 2e-5;
+  space rank 1 holds zero rows;
 * ``__graft_entry__._dryrun_impl``'s dp x sp model (64^2, embed 32, depths
   2/2/2/2, heads 2/2/4/4, window 7): grids 16/8/4/2 pad to 21/14/7/7, the
-  slabs are uneven and the shifted windows of stage 0 cross the ranks; the
-  loss to 2e-5 and the parameters to 1e-5 for all but 1e-3 of the
-  elements and Adam's bound ``2 * lr * steps`` for all.
+  slabs are uneven and the shifted windows of stage 0 cross the ranks;
+* JAX's own mesh for that test's model, data 2 x space 4 (8 ranks): stage
+  0's 8 rows make two windows of 4, so space ranks 2 and 3 hold no pixel
+  rows and run every module on empty slabs.
 
-Every rank reports the same loss, and the four ranks end with equal
-parameters in bits.
+Each case holds the loss to 2e-5 and the parameters to 1e-5 for all but
+1e-3 of the elements and to Adam's bound ``2 * lr * steps`` for all.
+
+Every rank reports the same loss, and the ranks end with equal
+parameters in bits.  JAX's step is computed once per model and shared by
+its cases.
 """
 
 import itertools
@@ -45,12 +56,16 @@ from semantic_segmentation_of_stylegan2_artifacts_tpu.core.config import (
 )
 from semantic_segmentation_of_stylegan2_artifacts_tpu.models import MSUNet as JaxMSUNet
 from semantic_segmentation_of_stylegan2_artifacts_tpu.train import state as jax_state
-from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import MSUNet
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.layers import PatchEmbed
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import (
+    MSUNet,
+    init_weights,
+)
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.weights import (
     flax_to_state_dict,
     state_dict_to_flax,
 )
-from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.parallel import spatial
+from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.parallel import mesh, spatial
 from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools import dp_check
 
 YAML = """\
@@ -196,6 +211,71 @@ def test_spatial_forward_without_a_group_raises():
                                     num_heads=(2,) * 4, window_size=4), None)
 
 
+def test_patch_embed_on_an_empty_slab():
+    """No pixel rows: ``(B, 0, W/4, E)``, and every parameter of the conv
+    and the norm gets a zero gradient (not ``None``)."""
+    embed = PatchEmbed(4, 3, 16, True, torch.float32)
+    init_weights(embed, 0)
+    y = embed(torch.rand(2, 0, 32, 3))
+    assert y.shape == (2, 0, 8, 16)
+    y.sum().backward()
+    for name, p in embed.named_parameters():
+        assert p.grad is not None and torch.equal(p.grad, torch.zeros_like(p)), name
+    rows = embed(torch.rand(2, 4, 32, 3))  # a slab with rows is unchanged
+    assert rows.shape == (2, 1, 8, 16) and bool(rows.abs().sum() > 0)
+
+
+def _space_buffer(me, monkeypatch):
+    """One train step of JAX's 32^2 model as space rank ``me`` of four, the
+    other ranks' rows emulated as zeros: the parameters the step sums over
+    the space group in its one buffer, and those left without a gradient
+    by the backward alone."""
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.core.config import default_config
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train.state import (
+        create_train_state,
+        make_train_step,
+    )
+
+    monkeypatch.setattr(spatial.dist, "get_world_size", lambda group=None: 4)
+    monkeypatch.setattr(spatial.dist, "get_rank", lambda group=None: me)
+    monkeypatch.setattr(spatial, "_all_to_all", lambda send, out_counts, in_counts, group:
+                        send.new_zeros((send.shape[0], sum(out_counts)) + send.shape[2:]))
+    model = MSUNet(img_size=32, embed_dim=16, depths=(1, 1, 1, 1), num_heads=(2,) * 4,
+                   window_size=4, spatial_axis="space")
+    space = spatial.attach_space(model, None)
+    state = create_train_state(model, default_config(), device="cpu")
+    state.mesh = mesh.Mesh(1, 1, 4, 0, 0, me, None, None, None)
+    listed, untouched = [], []
+    names = {id(p): n for n, p in model.named_parameters()}
+
+    def record(params, group, src=None):
+        untouched.extend(n for n, p in model.named_parameters()
+                         if p.grad is not None and p.grad.count_nonzero() == 0)
+        listed.extend(names[id(p)] for p in params)
+
+    monkeypatch.setattr(mesh, "_reduce_grads", record)
+    rng = np.random.default_rng(0)
+    step = make_train_step(model, 0.2, 0.8, 0.45)
+    step(state, rng.integers(0, 256, (1, 32, 32, 3), dtype=np.uint8),
+         (rng.random((1, 32, 32)) > 0.8).astype(np.uint8), 1e-3)
+    return space.rows(8), listed, untouched
+
+
+def test_an_empty_space_rank_lists_every_gradient(monkeypatch):
+    """Space rank 3 of four at 32^2 holds no rows at any stage; rank 0
+    holds rows at every stage.  Both sum every trainable parameter's
+    gradient over the space group in one buffer, in the same order (the
+    train step gives a parameter the backward left without one a zero
+    gradient), so the buffers line up across the ranks."""
+    rows0, listed0, _ = _space_buffer(0, monkeypatch)
+    rows3, listed3, zeros3 = _space_buffer(3, monkeypatch)
+    model = MSUNet(img_size=32, embed_dim=16, depths=(1, 1, 1, 1), num_heads=(2,) * 4,
+                   window_size=4)
+    assert rows0 == (0, 4) and rows3 == (8, 8)
+    assert listed0 == listed3 == [n for n, _ in model.named_parameters()]
+    assert {"ms_unet.patch_embed.proj.weight", "ms_unet.up.refine1.weight"} <= set(zeros3)
+
+
 def _flat(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -219,31 +299,48 @@ def jax_step(cfg_path, img, lbl):
     return init, jax.device_get(state.params), float(loss)
 
 
-@pytest.mark.parametrize("setting", list(SETTINGS))
-def test_sp_step_matches_jax(setting, tmp_path):
-    kw = SETTINGS[setting]
-    size = kw["img"]
-    rng = np.random.default_rng(3)
-    img = rng.integers(0, 256, (4, size, size, 3), dtype=np.uint8)
-    lbl = (rng.random((4, size, size)) > 0.8).astype(np.uint8)
-    jax_path = tmp_path / "jax.yaml"
-    jax_path.write_text(YAML.format(kernels="false", axis="", **kw))
-    init, want, want_loss = jax_step(str(jax_path), img, lbl)
+@pytest.fixture(scope="module")
+def jax_reference(tmp_path_factory):
+    """``reference(setting)``: the setting's batch and JAX's step on it,
+    computed once for the module."""
+    cache = {}
+
+    def reference(setting):
+        if setting not in cache:
+            kw = SETTINGS[setting]
+            size = kw["img"]
+            rng = np.random.default_rng(3)
+            img = rng.integers(0, 256, (4, size, size, 3), dtype=np.uint8)
+            lbl = (rng.random((4, size, size)) > 0.8).astype(np.uint8)
+            path = tmp_path_factory.mktemp(setting) / "jax.yaml"
+            path.write_text(YAML.format(kernels="false", axis="", **kw))
+            cache[setting] = (img, lbl) + jax_step(str(path), img, lbl)
+        return cache[setting]
+
+    return reference
+
+
+@pytest.mark.parametrize("setting,n_space", [
+    pytest.param("jax_test", 2, id="jax_test"),
+    pytest.param("dryrun", 2, id="dryrun"),
+    pytest.param("jax_test", 4, id="jax_test-2x4"),
+])
+def test_sp_step_matches_jax(setting, n_space, jax_reference, tmp_path):
+    img, lbl, init, want, want_loss = jax_reference(setting)
     port_path = tmp_path / "sp.yaml"
-    port_path.write_text(YAML.format(kernels="true", axis="space", **kw))
+    port_path.write_text(YAML.format(kernels="true", axis="space", **SETTINGS[setting]))
     spec = dp_check.make_spec(str(port_path), [(img, lbl)], LR, state_dict=init,
-                              device="cpu", n_space=2)
-    ranks = dp_check.spawn_steps(spec, 4, str(tmp_path / "ranks"))
-    assert [r["coords"] for r in ranks] == [(0, 0, 0), (0, 0, 1), (1, 0, 0), (1, 0, 1)]
+                              device="cpu", n_space=n_space)
+    ranks = dp_check.spawn_steps(spec, 2 * n_space, str(tmp_path / "ranks"))
+    assert [r["coords"] for r in ranks] == [(d, 0, s) for d in range(2) for s in range(n_space)]
     assert all(r["losses"] == ranks[0]["losses"] for r in ranks)
     assert all(torch.equal(r["digest"], ranks[0]["digest"]) for r in ranks)
     assert abs(ranks[0]["losses"][0] - want_loss) <= 2e-5
-    if setting == "dryrun":
-        got = dict(_flat(state_dict_to_flax(ranks[0]["state_dict"])))
-        n_far = n_all = 0
-        for k, w in _flat(want):
-            diff = np.abs(got[k] - w)
-            assert diff.max() <= 2 * LR, ("/".join(k), diff.max())
-            n_far += int((diff > 1e-5).sum())
-            n_all += diff.size
-        assert n_far <= 1e-3 * n_all, (n_far, n_all)
+    got = dict(_flat(state_dict_to_flax(ranks[0]["state_dict"])))
+    n_far = n_all = 0
+    for k, w in _flat(want):
+        diff = np.abs(got[k] - w)
+        assert diff.max() <= 2 * LR, ("/".join(k), diff.max())
+        n_far += int((diff > 1e-5).sum())
+        n_all += diff.size
+    assert n_far <= 1e-3 * n_all, (n_far, n_all)
