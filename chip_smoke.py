@@ -100,7 +100,7 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    ``REMAT_LOSS_TOL``;
 12. grid search: the port's run CLI over a copy of ``config.yaml`` at 256^2
    on a synthetic split, one epoch a trial, attention dropout 0.05, alpha
-   0.3 / 0.4, lr 8.5e-6 (4 trials, each the port's train CLI in its
+   0.3, lr 8.5e-6 (3 trials, one a sweep, each the port's train CLI in its
    own process on the card): every trial's numeric ``Score``, the ``BEST:``
    line, ``config.yaml`` unchanged, and the trials' decodes (their
    ``epoch_timing`` lines) native only;
@@ -169,8 +169,23 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
    cuDNN deterministic) to the step without the save, and the test CLI's
    Score on the orbax directory against a ``.pth`` of the same weights (to
    1e-6), each run with its launches;
-9. prints the kernels line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+18. Swin-B at window 12 (run before 9; 144 tokens a window, so every
+   attention call takes the tiled kernels): (a) the tiled forward and
+   backward against their plain versions at the window-12 stage shapes of
+   the 512^2 batch-8 paths (grids 132/72/36/24, shift 6) and at
+   ``W12_CORNERS`` (65, 144, 484 and 576 tokens, one image, one head, head
+   widths 16, 24, 32, 64, 128), float32 and bfloat16, a repeated launch's
+   bits, each timed beside its bound, the plain versions and one
+   ``scaled_dot_product_attention`` call; (b) the window-12 predict step
+   with its launch counts (52 tiled attention, 3 merge, 6 expand, 1
+   refine), ms/forward, device time, busy share, peak memory; (c) bench.py's
+   train step at window 12 (launches 52/48 tiled attention, 3/3, 6/6, 1/1;
+   the loss falls over ten steps; ms/step, MFU, device time, busy share,
+   peak memory); (d) one float32 train step against the composed path at
+   512^2 b2; (e) the predict CLI at ``WINDOW_SIZE: 12`` over phase 10's
+   synthetic val split, with its launches;
+9. prints the kernels line (the tiled kernels as rows of their own), the
+   card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase prints ``chip_smoke: phase <n> <name> failed: <error>``
 on stdout, with the shape where a shape check failed, and re-raises: the
@@ -228,6 +243,10 @@ TOL = {
     "gelu_d2s4": {"f32": 1e-5, "bf16": 1e-2},
     "gelu_d2s4_bwd": {"f32": 1e-5, "bf16": 1e-2},
 }
+# the tiled kernels (windows of more than 64 tokens) are held to the bars of
+# the other attention kernels
+TOL["window_attention_tiled"] = TOL["window_attention"]
+TOL["window_attention_bwd_tiled"] = TOL["window_attention_bwd"]
 E2E_TOL = 1e-3
 # plain backward vs torch.autograd of the plain forward, float32: the same
 # arithmetic in another order
@@ -397,13 +416,28 @@ SWIN_T = {"MODEL.SWIN.EMBED_DIM": 96, "MODEL.SWIN.DEPTHS": [2, 2, 6, 2],
           "MODEL.SWIN.NUM_HEADS": [3, 6, 12, 24], "MODEL.SWIN.WINDOW_SIZE": 7}
 
 
-def stage_shapes(wa):
-    """(stage, shift, hp, wp, sh, sw) of every attention shape of the path."""
-    ws, tokens = 7, IMG // 4
+def stage_shapes(wa, ws=7):
+    """(stage, hp, wp, sh, sw) of every attention shape of the path at window
+    ``ws`` (shift ``ws // 2`` in every other block)."""
+    tokens = IMG // 4
     for stage in range(4):
         g = tokens >> stage
-        for shift in (0, 3):
+        for shift in (0, ws // 2):
             yield (stage, *wa.effective_shift(g, g, (ws, ws), (shift, shift)))
+
+
+def sdpa_operands(wa, qkv, bias, wh, ww, heads, sh, sw):
+    """The yardstick's inputs: q, k, v partitioned into (B, nW, heads, N, hd)
+    and the bias (+ the shift mask) as a bf16 ``attn_mask``."""
+    b, hp, wp, c3 = qkv.shape
+    hd, n = c3 // 3 // heads, wh * ww
+    part = qkv.reshape(b, hp // wh, wh, wp // ww, ww, 3, heads, hd).permute(
+        5, 0, 1, 3, 6, 2, 4, 7).reshape(3, b, -1, heads, n, hd).contiguous()
+    mask = bias[None].expand(part.shape[2], -1, -1, -1)
+    if sh or sw:
+        sm = torch.as_tensor(wa.shifted_window_mask(hp, wp, wh, ww, sh, sw), device="cuda")
+        mask = mask + sm[:, None]
+    return part, mask.to(torch.bfloat16).contiguous()
 
 
 L2_FLUSH_BYTES = 256 << 20  # rewritten between launches to empty the 50 MB L2
@@ -434,23 +468,26 @@ ATTENTION_CORNERS = [
 ]
 
 
-def check_attention_corners(fwa, gen) -> None:
+def check_attention_corners(fwa, wa, gen, corners=ATTENTION_CORNERS, timed=False) -> None:
     """Forward and backward against the plain versions, float32 and
     bfloat16, at shapes on every boundary of the kernels' launch plan and
     templates; ``ctx``, ``dqkv`` and ``dbias`` of two launches must have
-    equal bits."""
+    equal bits.  ``timed``: each shape's bf16 forward and backward also by
+    CUDA events and device time, beside its bound, the plain versions and
+    one ``scaled_dot_product_attention`` call (forward, then backward)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for (b, hp, wp, dim, heads, (wh, ww), sh, sw), why in ATTENTION_CORNERS:
-        n, n_win = wh * ww, (hp // wh) * (wp // ww)
+    for (b, hp, wp, dim, heads, (wh, ww), sh, sw), why in corners:
+        n, n_win, hd = wh * ww, (hp // wh) * (wp // ww), dim // heads
         kw = dict(wh=wh, ww=ww, heads=heads, sh=sh, sw=sw)
         qkv32 = torch.randn((b, hp, wp, 3 * dim), generator=gen, device="cuda")
         d32 = torch.randn((b, hp, wp, dim), generator=gen, device="cuda")
         bias = torch.randn((heads, n, n), generator=gen, device="cuda")
         for dt in ("f32", "bf16"):
             qkv, d = (qkv32, d32) if dt == "f32" else (qkv32.bfloat16(), d32.bfloat16())
-            route = fwa.kernel_route(qkv.dtype, dim // heads, n, sh < wh and sw < ww)
+            route = fwa.kernel_route(qkv.dtype, hd, n, sh < wh and sw < ww)
             plan = (fwa.launch_plan(b, n_win, heads, sms, fwa.FWD_BLOCKS_PER_SM)
-                    if route == fwa.ROUTE_MMA else 1, *fwa.bwd_plan(route, b, n_win, heads, n, sms))
+                    if route == fwa.ROUTE_MMA else 1,
+                    *fwa.bwd_plan(route, b, n_win, heads, n, sms, hd))
             label = (f"qkv{tuple(qkv.shape)} window {(wh, ww)} heads {heads} shift {(sh, sw)} "
                      f"{dt} (route {route}, forward blocks per head {plan[0]}, backward plan "
                      f"{plan[1]} with partials {plan[2]}; {why})")
@@ -469,17 +506,46 @@ def check_attention_corners(fwa, gen) -> None:
                 print(f"  {name} {label}: rel {rel:.3e} (tol {TOL[name][dt]:g})")
                 if not rel <= TOL[name][dt]:
                     raise AssertionError(f"{name} {label}: {rel:.3e} > {TOL[name][dt]:g}")
+        if not timed:
+            continue
+        qkv, d = qkv32.bfloat16(), d32.bfloat16()
+        fwd = lambda: fwa.window_attention(qkv, bias, **kw)  # noqa: E731
+        bwd = lambda: fwa.window_attention_bwd(qkv, d, bias, **kw)  # noqa: E731
+        part, mask = sdpa_operands(wa, qkv, bias, wh, ww, heads, sh, sw)
+        q, k, v = (t.detach().requires_grad_() for t in part)
+        mask.requires_grad_()
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        dout = torch.randn_like(out)
+        flops = 2.0 * b * n_win * heads * n * n * hd
+        for what, run, plain, lib, n_bytes, ops in (
+                ("forward", fwd, lambda: fwa.window_attention_reference(qkv, bias, **kw),
+                 lambda: F.scaled_dot_product_attention(part[0], part[1], part[2],
+                                                        attn_mask=mask.detach()),
+                 nbytes(qkv, bias) + qkv.numel() // 3 * 2, 2 * flops),
+                ("backward", bwd,
+                 lambda: fwa.window_attention_bwd_reference(qkv, d, bias, **kw),
+                 lambda: torch.autograd.grad(out, (q, k, v, mask), dout, retain_graph=True),
+                 nbytes(qkv, d, bias) + qkv.numel() * 2 + bias.numel() * 4, 5 * flops)):
+            b_ms, by = bound_ms(n_bytes, ops)
+            print(f"  window attention {what} qkv{tuple(qkv.shape)} window {(wh, ww)} bf16: "
+                  f"kernel_ms {cuda_ms(run, 5):.4f} device_ms {device_ms(run):.4f} plain_ms "
+                  f"{cuda_ms(plain, 2):.4f} bound_ms {b_ms:.4f} ({by}) library_ms "
+                  f"{cuda_ms(lib, 5):.4f}")
+        del out
 
 
-def check_attention_bwd(fwa, wa, gen, stages=STAGES, rep=None, main_path=True) -> KernelReport:
+def check_attention_bwd(fwa, wa, gen, stages=STAGES, rep=None, main_path=True, ws=7,
+                        route=None) -> KernelReport:
     """``main_path`` False: another width's shapes, checked and timed with
-    count 0 and no yardstick."""
+    count 0 and no yardstick.  ``ws``: the window; ``route``: the kernel
+    family every shape must take (checked in both types)."""
     rep = rep or KernelReport("window_attention_bwd", "fused_window_attention.cu",
                               "fused_window_attention.py:597")
-    ws, n = 7, 49
+    n = ws * ws
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    for stage, hp, wp, sh, sw in stage_shapes(wa):
+    for stage, hp, wp, sh, sw in stage_shapes(wa, ws):
         dim, heads, _, blocks = stages[stage]
+        hd = dim // heads
         kw = dict(wh=ws, ww=ws, heads=heads, sh=sh, sw=sw)
         qkv32 = torch.randn((B, hp, wp, 3 * dim), generator=gen, device="cuda")
         d32 = torch.randn((B, hp, wp, dim), generator=gen, device="cuda")
@@ -489,6 +555,8 @@ def check_attention_bwd(fwa, wa, gen, stages=STAGES, rep=None, main_path=True) -
         errs = {}
         for dt in ("f32", "bf16"):
             qkv, d = (qkv32, d32) if dt == "f32" else (qkv32.bfloat16(), d32.bfloat16())
+            if route is not None and fwa.kernel_route(qkv.dtype, hd, n) != route:
+                raise AssertionError(f"{rep.row['name']} {label} {dt}: not route {route}")
             got = fwa.window_attention_bwd(qkv, d, bias, **kw)
             errs[dt] = multi_err(f"{label} {dt}", got,
                                  fwa.window_attention_bwd_reference(qkv, d, bias, **kw),
@@ -496,14 +564,13 @@ def check_attention_bwd(fwa, wa, gen, stages=STAGES, rep=None, main_path=True) -
             # the bias-gradient partials are summed in a fixed order
             if not all(torch.equal(a, b) for a, b in zip(
                     got, fwa.window_attention_bwd(qkv, d, bias, **kw))):
-                raise AssertionError(f"window_attention_bwd {label} {dt}: a repeated call "
+                raise AssertionError(f"{rep.row['name']} {label} {dt}: a repeated call "
                                      "gave other bits")
         qkv, d = qkv32.bfloat16(), d32.bfloat16()
         run = lambda: fwa.window_attention_bwd(qkv, d, bias, **kw)  # noqa: E731
         ms = cuda_ms(run, 10)
         plain = cuda_ms(lambda: fwa.window_attention_bwd_reference(qkv, d, bias, **kw), 2)
         n_win = B * (hp // ws) * (wp // ws)
-        hd = dim // heads
         n_bytes = nbytes(qkv, d, bias) + qkv.numel() * 2 + bias.numel() * 4
         b_ms, by = bound_ms(n_bytes, 10.0 * n_win * heads * n * n * hd)
         attention_device_times(rep, label, run, n_bytes, flush,
@@ -512,14 +579,9 @@ def check_attention_bwd(fwa, wa, gen, stages=STAGES, rep=None, main_path=True) -
             rep.add(f"{label} (Swin-T)", 0, errs, ms, plain, b_ms, by, t_count=blocks // 2)
             continue
         # yardstick: the backward of one SDPA call on pre-partitioned
-        # (B, nW, heads, 49, hd) with the bias (+ shift mask) as attn_mask
-        part = qkv.reshape(B, hp // ws, ws, wp // ws, ws, 3, heads, hd).permute(
-            5, 0, 1, 3, 6, 2, 4, 7).reshape(3, B, -1, heads, n, hd).contiguous()
-        mask = bias[None].expand(part.shape[2], -1, -1, -1)
-        if sh or sw:
-            sm = torch.as_tensor(wa.shifted_window_mask(hp, wp, ws, ws, sh, sw), device="cuda")
-            mask = mask + sm[:, None]
-        mask = mask.to(torch.bfloat16).contiguous().requires_grad_()
+        # (B, nW, heads, N, hd) with the bias (+ shift mask) as attn_mask
+        part, mask = sdpa_operands(wa, qkv, bias, ws, ws, heads, sh, sw)
+        mask.requires_grad_()
         q, k, v = (t.detach().requires_grad_() for t in part)
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
         dout = torch.randn_like(out)
@@ -706,31 +768,37 @@ def check_plain_backwards(fwa, frh, fp, fh, wa, gen) -> None:
         raise AssertionError(f"gelu+d2s plain backward: {rel:.3e} > {AUTOGRAD_TOL:g}")
 
 
-def check_attention(fwa, wa, gen, stages=STAGES, rep=None, main_path=True) -> KernelReport:
+def check_attention(fwa, wa, gen, stages=STAGES, rep=None, main_path=True, ws=7,
+                    route=None) -> KernelReport:
     """``main_path`` False: another width's shapes, checked and timed with
-    count 0 and no yardstick."""
+    count 0 and no yardstick.  ``ws``: the window; ``route``: the kernel
+    family every shape must take (checked in both types)."""
     rep = rep or KernelReport("window_attention", "fused_window_attention.cu",
                               "fused_window_attention.py:561")
-    ws, n = 7, 49
+    n = ws * ws
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    for stage, hp, wp, sh, sw in stage_shapes(wa):
+    for stage, hp, wp, sh, sw in stage_shapes(wa, ws):
         dim, heads, blocks, _ = stages[stage]
+        hd = dim // heads
         kw = dict(wh=ws, ww=ws, heads=heads, sh=sh, sw=sw)
         qkv32 = torch.randn((B, hp, wp, 3 * dim), generator=gen, device="cuda")
         table = torch.randn(((2 * ws - 1) ** 2, heads), generator=gen, device="cuda")
         bias = wa.gather_bias(table, ws, ws, heads).float().contiguous()
         errs = {}
         for dt, qkv in (("f32", qkv32), ("bf16", qkv32.to(torch.bfloat16))):
+            if route is not None and fwa.kernel_route(qkv.dtype, hd, n) != route:
+                raise AssertionError(f"{rep.row['name']} {tuple(qkv.shape)} {dt}: not route "
+                                     f"{route}")
             got = fwa.window_attention(qkv, bias, **kw)
             errs[dt] = rel_err(got, fwa.window_attention_reference(qkv, bias, **kw))
             # nothing in the kernel depends on the order blocks run in
             if not torch.equal(got, fwa.window_attention(qkv, bias, **kw)):
-                raise AssertionError(f"window_attention {dt}: a repeated call gave other bits")
+                raise AssertionError(f"{rep.row['name']} {dt}: a repeated call gave other "
+                                     "bits")
         qkv = qkv32.to(torch.bfloat16)
         run = lambda: fwa.window_attention(qkv, bias, **kw)  # noqa: E731
         ms = cuda_ms(run, 20)
         plain = cuda_ms(lambda: fwa.window_attention_reference(qkv, bias, **kw), 3)
-        hd = dim // heads
         n_bytes = nbytes(qkv, bias) + qkv.numel() // 3 * 2
         b_ms, by = bound_ms(n_bytes, 4.0 * B * (hp // ws) * (wp // ws) * heads * n * n * hd)
         label = f"qkv{tuple(qkv.shape)} shift{(sh, sw)}"
@@ -739,15 +807,8 @@ def check_attention(fwa, wa, gen, stages=STAGES, rep=None, main_path=True) -> Ke
         if not main_path:
             rep.add(f"{label} (Swin-T)", 0, errs, ms, plain, b_ms, by, t_count=blocks // 2)
             continue
-        # yardstick: one SDPA call on pre-partitioned (B, nW, heads, 49, hd)
-        part = qkv.reshape(B, hp // ws, ws, wp // ws, ws, 3, heads, hd).permute(
-            5, 0, 1, 3, 6, 2, 4, 7).reshape(3, B, -1, heads, n, hd).contiguous()
-        mask = bias[None].expand(part.shape[2], -1, -1, -1)
-        if sh or sw:
-            sm = torch.as_tensor(wa.shifted_window_mask(hp, wp, ws, ws, sh, sw),
-                                 device="cuda")
-            mask = mask + sm[:, None]
-        mask = mask.to(torch.bfloat16).contiguous()
+        # yardstick: one SDPA call on pre-partitioned (B, nW, heads, N, hd)
+        part, mask = sdpa_operands(wa, qkv, bias, ws, ws, heads, sh, sw)
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             part[0], part[1], part[2], attn_mask=mask), 20)
         rep.add(label, blocks // 2, errs, ms, plain, b_ms, by, lib)
@@ -1669,7 +1730,9 @@ def recomputation(train_args, build, rng, card: str) -> None:
 GRID_IMG = 256
 GRID_SPLIT = dict(n_fake_train=4, n_real_train=2, n_val_fake=1, n_val_real=1,
                   n_test_fake=0, n_test_real=0)
-GRID_ARGS = ["--attn_drop", "0.05", "--alpha", "0.3", "0.4", "--lr", "8.5e-6"]
+# one value a sweep: three trials, the fewest the run CLI's three sweeps run
+GRID_ARGS = ["--attn_drop", "0.05", "--alpha", "0.3", "--lr", "8.5e-6"]
+GRID_TRIALS = 3
 
 
 def grid_search(card: str) -> None:
@@ -1733,7 +1796,7 @@ def grid_search(card: str) -> None:
         print(f"run CLI: {len(csvs)} trials through the port's train CLI in {wall:.1f} s "
               f"({wall / max(1, len(csvs)):.1f} s a trial, {GRID_IMG}^2, 1 epoch; {card}); "
               f"Score by trial {scores}; {best_line}")
-        if len(csvs) != 4 or len(best_line) != 1:
+        if len(csvs) != GRID_TRIALS or len(best_line) != 1:
             raise AssertionError(f"run CLI: {len(csvs)} trials, BEST lines {best_line}")
         print(f"run CLI trials' image decodes (their epoch_timing lines): {decodes}")
         if decodes["pil"] != 0 or decodes["native"] <= 0:
@@ -2553,6 +2616,134 @@ def orbax_checkpoints(train_args, build, card: str, per_step: dict) -> None:
         shutil.rmtree(run_dir, ignore_errors=True)
 
 
+# phase 18: Swin-B at window 12 (the geometry of Microsoft's published
+# swin_base_patch4_window12_384 and of mmsegmentation's UperNet Swin-B
+# 512x512 config; config.yaml's widths otherwise), 144 tokens a window: every
+# attention call takes the tiled kernels.  Stage grids 128/64/32/16 pad to
+# 132/72/36/24 at 512^2, shift 6 in every other block.
+W12 = 12
+W12_CHANGES = {"MODEL.SWIN.WINDOW_SIZE": W12}
+W12_FORWARD = dict(window_attention_tiled=52, patch_merge=3, patch_expand=6, refine_head=1)
+W12_STEP = dict(window_attention_tiled=52, window_attention_bwd_tiled=48, patch_merge=3,
+                patch_merge_bwd=3, patch_expand=6, patch_expand_bwd=6, refine_head_res=1,
+                refine_head_bwd=1)
+# (B, Hp, Wp, C, heads, window, sh, sw): what each case is there for
+W12_CORNERS = [
+    ((2, 10, 26, 64, 2, (5, 13), 2, 6), "65 tokens: one past the banded kernels, 2 tiles"),
+    ((1, 24, 36, 32, 1, (12, 12), 0, 0), "144 tokens unshifted, one image, one head"),
+    ((2, 24, 24, 96, 6, (12, 12), 6, 6), "144 tokens shifted, head width 16"),
+    ((1, 44, 44, 128, 2, (22, 22), 11, 11), "484 tokens (window 22, shift 11), head width 64"),
+    ((1, 24, 24, 256, 2, (24, 24), 0, 0), "576 tokens (window 24): one window, head width 128"),
+    ((2, 36, 24, 72, 3, (12, 12), 6, 6), "head width 24: columns past the width"),
+]
+
+
+def window12_cli(build, card: str) -> None:
+    """(e): the predict CLI at ``WINDOW_SIZE: 12`` over phase 10's synthetic
+    val split (1024^2, seed 0), on a checkpoint of seeded weights."""
+    import os
+    import shutil
+
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.cli import predict_cli
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.core.config import load_config
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.data.synthetic import (
+        generate_synthetic_dataset,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import MSUNet
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    run_dir = os.path.join(root, "model_out", "chip_smoke_phase18")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    try:
+        data = os.path.join(run_dir, "data")
+        generate_synthetic_dataset(data, img_size=2 * IMG, seed=0, **CLI_SPLIT)
+        cfg_path = os.path.join(run_dir, "window12.yaml")
+        with open(cfg_path, "w") as f:
+            f.write(f"BASE: ['{os.path.join(root, 'config.yaml')}']\n"
+                    f"DATA:\n  DATA_PATH: '{data}'\n"
+                    f"MODEL:\n  PRETRAIN_WEIGHTS: none\n  SWIN:\n    WINDOW_SIZE: {W12}\n"
+                    f"LIST_DIR: '{os.path.join(data, 'lists')}'\n")
+        ckpt = os.path.join(run_dir, "ckpt")
+        os.makedirs(ckpt)
+        torch.save(MSUNet.from_config(load_config(cfg_path), device="cpu").state_dict(),
+                   os.path.join(ckpt, "best_model.pth"))
+        pred_dir = os.path.join(run_dir, "predict")
+        n_val = CLI_SPLIT["n_val_fake"] + CLI_SPLIT["n_val_real"]
+        build.reset_launches()
+        t0 = time.perf_counter()
+        preds, _ = run_captured(predict_cli.main, [
+            "--cfg", cfg_path, "--check_point_dir", ckpt, "--out_dir", pred_dir,
+            "--split", "val"])
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        want = expect(build, **{k: n_val * v for k, v in W12_FORWARD.items()})
+        print(f"predict CLI at window 12 over {n_val} val cases 1024^2: {wall:.2f} s in all, "
+              f"{n_val / wall:.3f} cases/s (host clock); launches {launches}; {card}")
+        pngs = [n for n in os.listdir(pred_dir) if n.endswith(".png")]
+        if launches != want or len(preds) != n_val or len(pngs) != 4 * n_val or not all(
+                np.isfinite(p).all() for _, p in preds):
+            raise AssertionError(f"predict CLI at window 12: {len(preds)} cases, {len(pngs)} "
+                                 f"files, launches {launches} != {want}")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def window12(train_args, build, fwa, wa, gen, rng, images, card: str) -> tuple:
+    """Phase 18: the tiled kernels against their plain versions at the
+    window-12 Swin-B 512^2 b8 stage shapes and at ``W12_CORNERS``; the
+    window-12 predict step, bench.py's train step and an f32 train step
+    against the composed path; the predict CLI.  Returns the two rows."""
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import (
+        attention_plan,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.tools.dp_check import (
+        deployment_config,
+    )
+    from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.train.state import (
+        make_predict_step,
+    )
+
+    MSUNet = train_args[0]
+    t0 = time.perf_counter()
+    print(f"(a) tiled kernels vs plain, window {W12} (512^2 batch 8 shapes; ms are bf16):")
+    attn = check_attention(fwa, wa, gen, ws=W12, route=fwa.ROUTE_TILED, rep=KernelReport(
+        "window_attention_tiled", "fused_window_attention.cu", "fused_window_attention.py:561"))
+    torch.cuda.empty_cache()
+    attn_bwd = check_attention_bwd(fwa, wa, gen, ws=W12, route=fwa.ROUTE_TILED, rep=KernelReport(
+        "window_attention_bwd_tiled", "fused_window_attention.cu",
+        "fused_window_attention.py:597"))
+    torch.cuda.empty_cache()
+    check_attention_corners(fwa, wa, gen, W12_CORNERS, timed=True)
+    torch.cuda.empty_cache()
+    print(f"phase 18 (a): {time.perf_counter() - t0:.1f} s")
+
+    cfg = deployment_config(**W12_CHANGES)
+    model = MSUNet.from_config(cfg)
+    print("(b) window-12 model: " + "; ".join(attention_plan(model)))
+    step = make_predict_step(model)
+    launches, _ = run_predict(step, images, build, expect(build, **W12_FORWARD),
+                              "Swin-B window 12")
+    attn.row["launches"] = launches["window_attention_tiled"]
+    fwd_ms = time_predict(step, images, "Swin-B window 12")
+    profile_forward(step, images, fwd_ms, what="window-12 forward")
+    del step, model
+    torch.cuda.empty_cache()
+
+    print("(c) bench.py's train step at window 12:")
+    launches, _ = run_train_step(train_args, build, rng, W12_CHANGES,
+                                 expect(build, **W12_STEP), "Swin-B window 12")
+    attn_bwd.row["launches"] = launches["window_attention_bwd_tiled"]
+    torch.cuda.empty_cache()
+    print("(d) f32 train step at window 12, kernel vs composed path:")
+    check_train_e2e(train_args, rng, W12_CHANGES, "Swin-B window 12")
+    torch.cuda.empty_cache()
+    print("(e) predict CLI at window 12:")
+    window12_cli(build, card)
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s; {card}")
+    return attn, attn_bwd
+
+
 @contextlib.contextmanager
 def phase(n: int, name: str):
     """Run one phase of the smoke; on any error say which on stdout and
@@ -2618,7 +2809,7 @@ def main() -> int:
         attn = check_attention(fused_window_attention, window_attention, gen)
         check_attention(fused_window_attention, window_attention, gen, SWIN_T_STAGES, attn,
                         main_path=False)
-        check_attention_corners(fused_window_attention, gen)
+        check_attention_corners(fused_window_attention, window_attention, gen)
         merge, expand = check_patch(fused_patch, gen)
         check_patch_fwd_corners(fused_patch, gen)
         torch.cuda.empty_cache()
@@ -2778,9 +2969,14 @@ def main() -> int:
         print(f"phase 17: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
+    with phase(18, "Swin-B at window 12: the tiled attention kernels"):
+        attn12, attn12_bwd = window12(train_args, _build, fused_window_attention,
+                                      window_attention, gen, rng, images, card)
+        torch.cuda.empty_cache()
+
     with phase(9, "report"):
-        reports = [attn, attn_bwd, merge, merge_bwd, expand, expand_bwd, refine, res, bwd,
-                   gelu_f, gelu_b]
+        reports = [attn, attn_bwd, attn12, attn12_bwd, merge, merge_bwd, expand, expand_bwd,
+                   refine, res, bwd, gelu_f, gelu_b]
         if len(reports) != len(_build.LAUNCHES):
             raise AssertionError(f"{len(reports)} kernel rows for {len(_build.LAUNCHES)} "
                                  "launch counters")

@@ -49,6 +49,7 @@ import torch
 import torch.nn as nn
 
 from ..core.device import compute_dtype, resolve_device
+from ..ops import fused_window_attention
 from ..parallel import spatial
 from ..parallel.mesh import world_size_for
 from .layers import (
@@ -111,6 +112,7 @@ class MSUNetSys(nn.Module):
         self.img_size = img_size
         self.patch_size = patch_size
         self.embed_dim = embed_dim
+        self.num_heads = tuple(num_heads)
         self.window_size = window_size
         # the knobs as asked, for attention_plan; a model or space axis routes
         # every kernel off (JAX MSUNetSys._stage_pallas, setup): the kernels
@@ -237,21 +239,33 @@ def attention_plan(model: nn.Module) -> List[str]:
     """Which path each encoder stage's attention, the patch merges and
     expands, and the head take, with JAX ``attention_plan``'s reasons
     (``models/msunet.py:83-150``): under a model or space axis every kernel
-    is routed off.  A pure function of the model's configuration."""
+    is routed off.  On the kernel path, the card's kernel family
+    (``ops/fused_window_attention.py::kernel_route``) and the window's
+    tokens.  A pure function of the model's configuration."""
     sys = getattr(model, "ms_unet", model)
     reason = ("spatial sharding" if sys.spatial_axis
               else "tensor parallel" if sys.model_axis else "")
+    n = sys.window_size ** 2
     lines = []
     for i in range(len(sys.depths)):
         grid = sys.img_size // sys.patch_size // 2 ** i
         path = ("composed (disabled)" if not sys.requested["attention"]
-                else f"composed ({reason})" if reason else "kernel")
+                else f"composed ({reason})" if reason
+                else _kernel_path(sys.dtype, sys.embed_dim * 2 ** i // sys.num_heads[i], n))
         lines.append(f"attention stage {i}: grid {grid}x{grid} c{sys.embed_dim * 2 ** i} "
                      f"-> {path}")
     for part, label in (("patch", "patch merge/expand"), ("head", "head")):
         if sys.requested[part]:
             lines.append(f"{label}: {'composed (sharded)' if reason else 'kernel'}")
     return lines
+
+
+def _kernel_path(dtype: torch.dtype, hd: int, n: int) -> str:
+    try:
+        route = fused_window_attention.kernel_route(dtype, hd, n)
+    except ValueError:
+        return f"kernel (no kernel takes head width {hd} at {n} tokens: raises on the card)"
+    return f"kernel ({fused_window_attention.ROUTE_NAMES[route]}, {n} tokens a window)"
 
 
 _TRUNC_STD = 0.02 / 0.87962566103423978  # unit std after truncation at +-2

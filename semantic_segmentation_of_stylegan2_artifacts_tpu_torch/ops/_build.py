@@ -9,7 +9,9 @@ import every module of the port on a machine with no ``nvcc``.
 Each wrapper counts its launches in :data:`LAUNCHES`, one per call that
 launches its kernel (a call that runs several CUDA launches, such as the
 refine head's convs and reductions, counts once), so a run can show that
-its main path went through the kernels.
+its main path went through the kernels.  Window attention counts its
+tiled kernels (windows of more than 64 tokens) apart from the other three
+families, so a path shows which of the two it took.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ _LIB_NAME = "libssa_kernels.so"
 LAUNCHES = {
     "window_attention": 0,
     "window_attention_bwd": 0,
+    "window_attention_tiled": 0,
+    "window_attention_bwd_tiled": 0,
     "patch_merge": 0,
     "patch_merge_bwd": 0,
     "patch_expand": 0,

@@ -9,11 +9,14 @@ same layout; the backward recomputes the probabilities from the saved
 qkv and writes ``dqkv`` ``(B,Hp,Wp,3C)`` and the float32 bias gradient
 ``(heads,N,N)`` summed over every window and image.  On the card the
 kernels cover every grid, so the TPU's width chunking
-(``_layout``/``pad_chunk``) and stage caps are gone.  Which of the three
-kernel families a call takes (:func:`kernel_route`) and, for the
-``mma.sync`` kernels of the main path, how many blocks walk each head's
-windows (:func:`launch_plan`, from the card's SM count) are decided here,
-from the static shape, before the launch.
+(``_layout``/``pad_chunk``) and stage caps are gone, and every window size
+(the TPU kernel's up to 512 tokens, and more): windows of more than 64
+tokens take the tiled kernels.  Which of the four kernel families a call
+takes (:func:`kernel_route`), how many blocks walk each head's windows for
+the ``mma.sync`` kernels of the main path (:func:`launch_plan`, from the
+card's SM count), and the backward's windows per block and scratch
+(:func:`bwd_plan`) are decided here, from the static shape, before the
+launch.
 
 :func:`window_attention_reference` and
 :func:`window_attention_bwd_reference` are the kernels' plain PyTorch
@@ -44,13 +47,17 @@ from .window_attention import (
     unroll_and_crop,
 )
 
-# Which kernel a call takes (``csrc/fused_window_attention.cu``): the CUDA-core
-# kernels (float32, and bfloat16 head widths that are not a multiple of 16),
-# the ``wmma`` kernels (bfloat16, other multiples of 16), or the ``mma.sync``
-# kernels of the main path (bfloat16, head width 16, 32 or 64).
-ROUTE_CORE, ROUTE_WMMA, ROUTE_MMA = 0, 1, 2
+# Which kernel a call takes (``csrc/fused_window_attention.cu``).  Windows of
+# up to 64 tokens (four 16-row bands): the CUDA-core kernels (float32, and
+# bfloat16 head widths that are not a multiple of 16), the ``wmma`` kernels
+# (bfloat16, other multiples of 16), or the ``mma.sync`` kernels of the main
+# path (bfloat16, head width 16, 32 or 64).  Larger windows (window 12 and
+# up), float32 and bfloat16 at head widths up to 128: the tiled kernels.
+ROUTE_CORE, ROUTE_WMMA, ROUTE_MMA, ROUTE_TILED = 0, 1, 2, 3
+ROUTE_NAMES = ("CUDA-core", "wmma", "mma.sync", "tiled")
 _MMA_HEAD_DIMS = (16, 32, 64)
-_MAX_TOKENS = 64  # a window's tokens: four 16-row bands
+_BAND_TOKENS = 64  # the largest window of the first three families
+_TILED_MAX_HEAD_DIM = 128
 
 # Resident blocks per SM of the ``mma.sync`` kernels (their
 # ``__launch_bounds__`` and shared memory at head width 32): a launch gets at
@@ -63,6 +70,11 @@ BWD_BLOCKS_PER_SM = 3
 # fills the card.
 _BWD_TARGET_BLOCKS = 1024
 _BWD_MAX_GROUP = 32
+# Backward blocks per SM the tiled kernels aim at (two waves of their ~2
+# resident blocks): each block's scratch is N x (N + hd + 3) floats a head,
+# 103 KB at window 12 and head width 32, so fewer, longer blocks keep it at
+# ~50 MB on a 132-SM card at stage 0 of Swin-B 512^2 b8.
+TILED_BWD_BLOCKS_PER_SM = 4
 
 
 def _partition(t: torch.Tensor, wh: int, ww: int, heads: int, parts: int) -> torch.Tensor:
@@ -130,8 +142,7 @@ def window_attention_bwd_reference(qkv: torch.Tensor, dctx: torch.Tensor,
 
 def _check_shape(qkv: torch.Tensor, wh: int, ww: int, heads: int) -> None:
     _, hp, wp, c3 = qkv.shape
-    # the kernels keep a window's N x N scores on chip, N <= 64
-    if wh * ww > _MAX_TOKENS or (c3 // 3) % heads or hp % wh or wp % ww:
+    if (c3 // 3) % heads or hp % wh or wp % ww:
         raise ValueError(f"window attention kernel: unsupported shape "
                          f"{tuple(qkv.shape)} window {(wh, ww)} heads {heads}")
 
@@ -140,12 +151,15 @@ def kernel_route(dtype: torch.dtype, hd: int, n: int, shift_inside: bool = True)
     """The kernel a (dtype, head width, tokens per window) takes, decided
     from the static shape before any launch.  ``shift_inside``: the shift is
     smaller than the window on both axes (the ``mma.sync`` kernels build the
-    shift mask from that)."""
+    shift mask from that).  Windows of more than 64 tokens take the tiled
+    kernels, whatever the shift."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"window attention kernel: float32 or bfloat16, got {dtype}")
-    if hd < 1 or not 1 <= n <= _MAX_TOKENS:
+    if hd < 1 or n < 1 or (n > _BAND_TOKENS and hd > _TILED_MAX_HEAD_DIM):
         raise ValueError(f"window attention kernel: no kernel takes head width {hd} "
                          f"with {n} tokens per window")
+    if n > _BAND_TOKENS:
+        return ROUTE_TILED
     if dtype == torch.float32 or hd % 16:
         return ROUTE_CORE
     if hd in _MMA_HEAD_DIMS and shift_inside:
@@ -179,17 +193,34 @@ def bwd_group(n_windows: int, heads: int) -> int:
     return max(1, min(_BWD_MAX_GROUP, g))
 
 
+def tiled_bwd_group(n_windows: int, heads: int, sm_count: int) -> int:
+    """Windows each backward block of the tiled kernels walks through: the
+    (window, head) pairs spread over ``TILED_BWD_BLOCKS_PER_SM`` blocks an
+    SM."""
+    if n_windows < 1 or heads < 1 or sm_count < 1:
+        raise ValueError("tiled_bwd_group: every count must be at least 1")
+    return max(1, -(-n_windows * heads // (sm_count * TILED_BWD_BLOCKS_PER_SM)))
+
+
 def bwd_plan(route: int, batch: int, n_windows: int, heads: int, n: int,
-             sm_count: int) -> Tuple[int, Tuple[int, int, int, int]]:
+             sm_count: int, hd: int = 0) -> Tuple[int, Tuple[int, int, int, int]]:
     """``(plan, scratch shape)`` of a backward launch: the plan argument of
     the C entry point (blocks per head for the ``mma.sync`` kernels, windows
     per block for the others) and the float32 scratch of per-block
     bias-gradient partials, one ``(heads, N, columns)`` per block of a head.
     The ``mma.sync`` kernels pad a partial's rows to their key tiles (56
-    columns up to 56 tokens, else 64) so that they write whole sectors."""
+    columns up to 56 tokens, else 64) so that they write whole sectors.  The
+    tiled kernels (head width ``hd``) follow each row of a partial with the
+    block's float32 dq accumulator and the row's max, sum and rowsum(dP*P):
+    ``N + hd + 3`` columns."""
     if route == ROUTE_MMA:
         chunks = launch_plan(batch, n_windows, heads, sm_count, BWD_BLOCKS_PER_SM)
         return chunks, (chunks, heads, n, 56 if n <= 56 else 64)
+    if route == ROUTE_TILED:
+        if hd < 1:
+            raise ValueError("bwd_plan: the tiled route needs the head width")
+        group = tiled_bwd_group(batch * n_windows, heads, sm_count)
+        return group, (-(-batch * n_windows // group), heads, n, n + hd + 3)
     group = bwd_group(batch * n_windows, heads)
     return group, (-(-batch * n_windows // group), heads, n, n)
 
@@ -213,7 +244,8 @@ def _fwd(qkv, rel_bias, wh, ww, heads, sh, sw):
         plan = launch_plan(b, (hp // wh) * (wp // ww), heads,
                            _build.sm_count(qkv.device.index), FWD_BLOCKS_PER_SM)
     out = torch.empty((b, hp, wp, c3 // 3), dtype=qkv.dtype, device=qkv.device)
-    _build.launch("window_attention", "ssa_window_attention_fwd",
+    _build.launch("window_attention_tiled" if route == ROUTE_TILED else "window_attention",
+                  "ssa_window_attention_fwd",
                   [qkv, rel_bias, out],
                   [b, hp, wp, c3 // 3, heads, wh, ww, sh, sw, route, plan], qkv.dtype)
     return out
@@ -233,11 +265,12 @@ def window_attention_bwd(qkv, dctx, rel_bias, *, wh, ww, heads, sh, sw):
     _build.check_cuda(dctx, "dctx", (b, hp, wp, c3 // 3), qkv.dtype)
     _build.check_cuda(rel_bias, "rel_bias", (heads, n, n), torch.float32)
     plan, scratch = bwd_plan(route, b, (hp // wh) * (wp // ww), heads, n,
-                             _build.sm_count(qkv.device.index))
+                             _build.sm_count(qkv.device.index), c3 // 3 // heads)
     dqkv = torch.empty_like(qkv)
     part = torch.empty(scratch, dtype=torch.float32, device=qkv.device)
     dbias = torch.empty((heads, n, n), dtype=torch.float32, device=qkv.device)
-    _build.launch("window_attention_bwd", "ssa_window_attention_bwd",
+    _build.launch("window_attention_bwd_tiled" if route == ROUTE_TILED
+                  else "window_attention_bwd", "ssa_window_attention_bwd",
                   [qkv, dctx, rel_bias, dqkv, part, dbias],
                   [b, hp, wp, c3 // 3, heads, wh, ww, sh, sw, route, plan], qkv.dtype)
     return dqkv, dbias

@@ -14,7 +14,9 @@ Tolerance: atol = rtol = 3e-5, the bar of the JAX package's own VJP test
 
 * The backward's launch plan (blocks per head, runs of windows, the
   scratch of per-block bias-gradient partials) as a pure function, for the
-  ``mma.sync`` kernels and for the grouped CUDA-core and ``wmma`` kernels.
+  ``mma.sync`` kernels, for the grouped CUDA-core and ``wmma`` kernels, and
+  for the tiled kernels of windows above 64 tokens (whose scratch rows also
+  hold each block's dq accumulator and row statistics).
 * The gradients at the ragged shapes of the card's corner-case phase
   against ``jax.vjp`` of the JAX kernel op (interpret mode) where its gate
   takes the shape, else of the composed JAX op: float32, max abs error
@@ -55,6 +57,7 @@ CASES = [
     (7, 77, 16, 2, (7, 7), (3, 0)),
     (28, 98, 16, 2, (7, 7), (3, 3)),
     (14, 147, 16, 2, (7, 7), (0, 3)),
+    (30, 26, 16, 2, (12, 12), (6, 6)),
 ]
 
 
@@ -148,6 +151,34 @@ def test_grouped_backward_plan_covers_every_window_once(batch, n_win, heads, rou
     assert rest == [heads, 49, 49]
     # block i walks windows [i * group, (i + 1) * group): the last may be short
     assert partials >= 1 and (partials - 1) * group < total <= partials * group
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("n,hd", [(65, 32), (144, 32), (484, 64), (576, 128)])
+@pytest.mark.parametrize("batch,n_win,heads", PLAN_SHAPES)
+def test_tiled_backward_plan_covers_every_window_once(batch, n_win, heads, n, hd, sms):
+    total = batch * n_win
+    group, (partials, *rest) = fwa.bwd_plan(fwa.ROUTE_TILED, batch, n_win, heads, n, sms, hd)
+    assert group == fwa.tiled_bwd_group(total, heads, sms) >= 1
+    # a scratch row: the bias-gradient partial (N), dq (hd), max, sum, rowsum
+    assert rest == [heads, n, n + hd + 3]
+    # block i walks windows [i * group, (i + 1) * group): the last may be short
+    assert partials >= 1 and (partials - 1) * group < total <= partials * group
+    # about TILED_BWD_BLOCKS_PER_SM blocks an SM: at most that many (a block per
+    # head at least), and at least half of it once a block walks several windows
+    target = sms * fwa.TILED_BWD_BLOCKS_PER_SM
+    assert partials <= max(1, -(-target // heads))
+    assert group == 1 or 2 * partials * heads >= target
+
+
+def test_tiled_backward_scratch_at_window_12():
+    """Stage 0 of Swin-B 512^2 b8 at window 12 (121 windows an image, 4
+    heads) on a 132-SM card: 8 windows a block, ~50 MB of scratch."""
+    group, scratch = fwa.bwd_plan(fwa.ROUTE_TILED, 8, 121, 4, 144, 132, 32)
+    assert (group, scratch) == (8, (121, 4, 144, 179))
+    assert 4 * np.prod(scratch) < 64 << 20
+    with pytest.raises(ValueError):
+        fwa.bwd_plan(fwa.ROUTE_TILED, 8, 121, 4, 144, 132)  # no head width
 
 
 @pytest.mark.parametrize("b,h,w,c,heads,window,shift", RAGGED)

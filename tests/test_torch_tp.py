@@ -268,7 +268,7 @@ def test_attention_plan_reasons():
               window_size=4, fused_attention=True, fused_patch=True, fused_head=True,
               gelu_tanh=True)
     plain = attention_plan(MSUNet(**kw))
-    assert plain[0] == "attention stage 0: grid 8x8 c16 -> kernel"
+    assert plain[0] == "attention stage 0: grid 8x8 c16 -> kernel (CUDA-core, 16 tokens a window)"
     assert plain[-2:] == ["patch merge/expand: kernel", "head: kernel"]
     for axis, reason in (("model_axis", "tensor parallel"),
                          ("spatial_axis", "spatial sharding")):

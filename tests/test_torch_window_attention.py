@@ -5,13 +5,16 @@ The port's kernel-path op (its plain version on the CPU) is held against
 mode, and its composed op against ``shifted_window_attention``, on the
 cases of ``tests/test_fused_window_attention.py``: divisible and padded
 grids, shifted blocks, window 5, a single window (shift dropped),
-multi-strip and wide grids.  Tolerance: atol = rtol = 2e-5 (float32
-sums taken in another order).
+multi-strip and wide grids, and windows above 64 tokens: window 12 on a
+padded grid (144 tokens, shift 6) and window 22 (484 tokens, shift 11),
+which the JAX kernel takes (up to 512 tokens) and the card's tiled kernels
+run.  Tolerance: atol = rtol = 2e-5 (float32 sums taken in another
+order).
 
 Further, for the card's kernels, what the CPU can reach of them: the
 launch plan of the ``mma.sync`` kernels (blocks per head, the runs of
 windows) as a pure function, the routing of a (dtype, head width,
-tokens) to one of the three kernel families, ``_check_shape``, and the
+tokens) to one of the four kernel families, ``_check_shape``, and the
 plain forward against the JAX package at the ragged shapes the card's
 corner-case phase uses (through the Pallas kernel in interpret mode
 where the JAX gate takes the shape, else through the composed JAX path;
@@ -49,6 +52,8 @@ CASES = [
     (7, 77, 16, 2, (7, 7), (3, 0)),
     (28, 98, 16, 2, (7, 7), (3, 3)),
     (14, 147, 16, 2, (7, 7), (0, 3)),
+    (30, 26, 16, 2, (12, 12), (6, 6)),
+    (44, 44, 16, 2, (22, 22), (11, 11)),
 ]
 
 
@@ -158,6 +163,18 @@ ROUTES = [
     (torch.bfloat16, 48, 49, True, fwa.ROUTE_WMMA),
     (torch.bfloat16, 96, 25, True, fwa.ROUTE_WMMA),
     (torch.bfloat16, 128, 49, True, fwa.ROUTE_WMMA),
+    # windows of more than 64 tokens: the tiled kernels, whatever the shift
+    (torch.bfloat16, 32, 65, True, fwa.ROUTE_TILED),
+    (torch.float32, 32, 81, True, fwa.ROUTE_TILED),
+    (torch.float32, 16, 65, True, fwa.ROUTE_TILED),
+    (torch.bfloat16, 32, 144, True, fwa.ROUTE_TILED),
+    (torch.float32, 32, 144, True, fwa.ROUTE_TILED),
+    (torch.bfloat16, 32, 144, False, fwa.ROUTE_TILED),
+    (torch.bfloat16, 64, 484, True, fwa.ROUTE_TILED),
+    (torch.float32, 64, 484, True, fwa.ROUTE_TILED),
+    (torch.bfloat16, 128, 576, True, fwa.ROUTE_TILED),
+    (torch.float32, 24, 144, True, fwa.ROUTE_TILED),
+    (torch.bfloat16, 8, 4096, True, fwa.ROUTE_TILED),
 ]
 
 
@@ -167,8 +184,9 @@ def test_kernel_route(dtype, hd, n, inside, route):
 
 
 @pytest.mark.parametrize("dtype,hd,n", [
-    (torch.float16, 32, 49), (torch.float64, 32, 49), (torch.bfloat16, 32, 65),
-    (torch.float32, 32, 81), (torch.bfloat16, 32, 0), (torch.float32, 0, 49)])
+    (torch.float16, 32, 49), (torch.float64, 32, 49), (torch.float16, 32, 144),
+    (torch.bfloat16, 129, 144), (torch.float32, 256, 65), (torch.bfloat16, 32, 0),
+    (torch.float32, 0, 49), (torch.float32, 0, 144)])
 def test_kernel_route_raises_where_no_kernel_takes_the_shape(dtype, hd, n):
     with pytest.raises(ValueError):
         fwa.kernel_route(dtype, hd, n)
@@ -177,7 +195,8 @@ def test_kernel_route_raises_where_no_kernel_takes_the_shape(dtype, hd, n):
 @pytest.mark.parametrize("shape,window,heads,ok", [
     ((2, 14, 21, 96), (7, 7), 2, True),
     ((1, 16, 24, 192), (8, 8), 4, True),
-    ((2, 18, 18, 96), (9, 9), 2, False),   # 81 tokens
+    ((2, 18, 18, 96), (9, 9), 2, True),    # 81 tokens: the tiled kernels
+    ((1, 26, 36, 96), (13, 12), 2, True),  # 156 tokens, a window of 13 x 12
     ((2, 14, 21, 96), (7, 7), 5, False),   # heads do not divide C
     ((2, 15, 21, 96), (7, 7), 2, False),   # rows not a multiple of the window
     ((2, 14, 20, 96), (7, 7), 2, False),   # columns not a multiple of the window
@@ -186,8 +205,9 @@ def test_check_shape(shape, window, heads, ok):
     qkv = torch.zeros(shape)
     if ok:
         fwa._check_shape(qkv, *window, heads)
-        assert fwa._route(qkv.bfloat16(), *window, heads, 3, 3) in (
-            fwa.ROUTE_MMA, fwa.ROUTE_WMMA, fwa.ROUTE_CORE)
+        want = ((fwa.ROUTE_TILED,) if window[0] * window[1] > 64
+                else (fwa.ROUTE_MMA, fwa.ROUTE_WMMA, fwa.ROUTE_CORE))
+        assert fwa._route(qkv.bfloat16(), *window, heads, 3, 3) in want
     else:
         with pytest.raises(ValueError):
             fwa._route(qkv, *window, heads, 0, 0)
@@ -198,6 +218,8 @@ def test_route_of_a_shift_as_wide_as_the_window():
     assert fwa._route(qkv, 7, 7, 2, 3, 3) == fwa.ROUTE_MMA
     assert fwa._route(qkv, 7, 7, 2, 7, 3) == fwa.ROUTE_WMMA
     assert fwa._route(qkv.float(), 7, 7, 2, 3, 3) == fwa.ROUTE_CORE
+    qkv = torch.zeros((1, 24, 24, 3 * 64), dtype=torch.bfloat16)
+    assert fwa._route(qkv, 12, 12, 2, 12, 6) == fwa.ROUTE_TILED
 
 
 # (B, H, W, C, heads, window, shift): small versions of the shapes of the
