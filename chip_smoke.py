@@ -172,11 +172,18 @@ Builds the port's CUDA kernels from ``csrc/`` and then, in order:
 18. Swin-B at window 12 (run before 9; 144 tokens a window, so every
    attention call takes the tiled kernels): (a) the tiled forward and
    backward against their plain versions at the window-12 stage shapes of
-   the 512^2 batch-8 paths (grids 132/72/36/24, shift 6) and at
-   ``W12_CORNERS`` (65, 144, 484 and 576 tokens, one image, one head, head
-   widths 16, 24, 32, 64, 128), float32 and bfloat16, a repeated launch's
-   bits, each timed beside its bound, the plain versions and one
-   ``scaled_dot_product_attention`` call; (b) the window-12 predict step
+   the 512^2 batch-8 paths (grids 132/72/36/24, shift 6; bfloat16 on the
+   tiled ``mma.sync`` kernels, float32 on the CUDA-core ones, each route
+   asserted) and at ``W12_CORNERS`` (65, 81, 144, 484 and 576 tokens,
+   shifted and not, head widths 8, 16, 24, 32, 40, 48, 64, 72, 128; the
+   one-block and the split kernels, and each column template of the
+   CUDA-core kernels in bfloat16; each case's route asserted), float32 and
+   bfloat16, a repeated launch's bits, each timed beside its bound, the plain
+   versions and one ``scaled_dot_product_attention`` call, every tiled
+   ``mma.sync`` corner no slower than its plain version; then, at the stage
+   shapes and every corner, every output element written and nothing
+   outside the outputs or the scratch (NaN-filled buffers with NaN guards),
+   the inputs unchanged; (b) the window-12 predict step
    with its launch counts (52 tiled attention, 3 merge, 6 expand, 1
    refine), ms/forward, device time, busy share, peak memory; (c) bench.py's
    train step at window 12 (launches 52/48 tiled attention, 3/3, 6/6, 1/1;
@@ -472,11 +479,13 @@ def check_attention_corners(fwa, wa, gen, corners=ATTENTION_CORNERS, timed=False
     """Forward and backward against the plain versions, float32 and
     bfloat16, at shapes on every boundary of the kernels' launch plan and
     templates; ``ctx``, ``dqkv`` and ``dbias`` of two launches must have
-    equal bits.  ``timed``: each shape's bf16 forward and backward also by
-    CUDA events and device time, beside its bound, the plain versions and
-    one ``scaled_dot_product_attention`` call (forward, then backward)."""
+    equal bits.  A case may name the family (``ROUTE_NAMES``) each type must
+    take.  ``timed``: each shape's bf16 forward and backward also by CUDA
+    events and device time, beside its bound, the plain versions and one
+    ``scaled_dot_product_attention`` call (forward, then backward); a tiled
+    ``mma.sync`` kernel must be no slower than its plain version."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for (b, hp, wp, dim, heads, (wh, ww), sh, sw), why in corners:
+    for (b, hp, wp, dim, heads, (wh, ww), sh, sw), why, *names in corners:
         n, n_win, hd = wh * ww, (hp // wh) * (wp // ww), dim // heads
         kw = dict(wh=wh, ww=ww, heads=heads, sh=sh, sw=sw)
         qkv32 = torch.randn((b, hp, wp, 3 * dim), generator=gen, device="cuda")
@@ -485,8 +494,10 @@ def check_attention_corners(fwa, wa, gen, corners=ATTENTION_CORNERS, timed=False
         for dt in ("f32", "bf16"):
             qkv, d = (qkv32, d32) if dt == "f32" else (qkv32.bfloat16(), d32.bfloat16())
             route = fwa.kernel_route(qkv.dtype, hd, n, sh < wh and sw < ww)
-            plan = (fwa.launch_plan(b, n_win, heads, sms, fwa.FWD_BLOCKS_PER_SM)
-                    if route == fwa.ROUTE_MMA else 1,
+            if names and fwa.ROUTE_NAMES[route] != names[0][dt]:
+                raise AssertionError(f"attention {why} {dt}: route {fwa.ROUTE_NAMES[route]}, "
+                                     f"not {names[0][dt]}")
+            plan = (fwa.fwd_plan(route, b, n_win, heads, n, sms, hd),
                     *fwa.bwd_plan(route, b, n_win, heads, n, sms, hd))
             label = (f"qkv{tuple(qkv.shape)} window {(wh, ww)} heads {heads} shift {(sh, sw)} "
                      f"{dt} (route {route}, forward blocks per head {plan[0]}, backward plan "
@@ -517,6 +528,7 @@ def check_attention_corners(fwa, wa, gen, corners=ATTENTION_CORNERS, timed=False
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
         dout = torch.randn_like(out)
         flops = 2.0 * b * n_win * heads * n * n * hd
+        held = fwa.kernel_route(qkv.dtype, hd, n) == fwa.ROUTE_TILED_MMA
         for what, run, plain, lib, n_bytes, ops in (
                 ("forward", fwd, lambda: fwa.window_attention_reference(qkv, bias, **kw),
                  lambda: F.scaled_dot_product_attention(part[0], part[1], part[2],
@@ -527,10 +539,14 @@ def check_attention_corners(fwa, wa, gen, corners=ATTENTION_CORNERS, timed=False
                  lambda: torch.autograd.grad(out, (q, k, v, mask), dout, retain_graph=True),
                  nbytes(qkv, d, bias) + qkv.numel() * 2 + bias.numel() * 4, 5 * flops)):
             b_ms, by = bound_ms(n_bytes, ops)
+            ms, plain_ms = cuda_ms(run, 5), cuda_ms(plain, 2)
             print(f"  window attention {what} qkv{tuple(qkv.shape)} window {(wh, ww)} bf16: "
-                  f"kernel_ms {cuda_ms(run, 5):.4f} device_ms {device_ms(run):.4f} plain_ms "
-                  f"{cuda_ms(plain, 2):.4f} bound_ms {b_ms:.4f} ({by}) library_ms "
+                  f"kernel_ms {ms:.4f} device_ms {device_ms(run):.4f} plain_ms "
+                  f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({by}) library_ms "
                   f"{cuda_ms(lib, 5):.4f}")
+            if held and ms > plain_ms:
+                raise AssertionError(f"window attention {what} {why}: kernel {ms:.4f} ms "
+                                     f"slower than plain {plain_ms:.4f} ms")
         del out
 
 
@@ -538,7 +554,7 @@ def check_attention_bwd(fwa, wa, gen, stages=STAGES, rep=None, main_path=True, w
                         route=None) -> KernelReport:
     """``main_path`` False: another width's shapes, checked and timed with
     count 0 and no yardstick.  ``ws``: the window; ``route``: the kernel
-    family every shape must take (checked in both types)."""
+    family every shape must take in each type (``{"f32": .., "bf16": ..}``)."""
     rep = rep or KernelReport("window_attention_bwd", "fused_window_attention.cu",
                               "fused_window_attention.py:597")
     n = ws * ws
@@ -555,8 +571,8 @@ def check_attention_bwd(fwa, wa, gen, stages=STAGES, rep=None, main_path=True, w
         errs = {}
         for dt in ("f32", "bf16"):
             qkv, d = (qkv32, d32) if dt == "f32" else (qkv32.bfloat16(), d32.bfloat16())
-            if route is not None and fwa.kernel_route(qkv.dtype, hd, n) != route:
-                raise AssertionError(f"{rep.row['name']} {label} {dt}: not route {route}")
+            if route is not None and fwa.kernel_route(qkv.dtype, hd, n) != route[dt]:
+                raise AssertionError(f"{rep.row['name']} {label} {dt}: not route {route[dt]}")
             got = fwa.window_attention_bwd(qkv, d, bias, **kw)
             errs[dt] = multi_err(f"{label} {dt}", got,
                                  fwa.window_attention_bwd_reference(qkv, d, bias, **kw),
@@ -772,7 +788,7 @@ def check_attention(fwa, wa, gen, stages=STAGES, rep=None, main_path=True, ws=7,
                     route=None) -> KernelReport:
     """``main_path`` False: another width's shapes, checked and timed with
     count 0 and no yardstick.  ``ws``: the window; ``route``: the kernel
-    family every shape must take (checked in both types)."""
+    family every shape must take in each type (``{"f32": .., "bf16": ..}``)."""
     rep = rep or KernelReport("window_attention", "fused_window_attention.cu",
                               "fused_window_attention.py:561")
     n = ws * ws
@@ -786,9 +802,9 @@ def check_attention(fwa, wa, gen, stages=STAGES, rep=None, main_path=True, ws=7,
         bias = wa.gather_bias(table, ws, ws, heads).float().contiguous()
         errs = {}
         for dt, qkv in (("f32", qkv32), ("bf16", qkv32.to(torch.bfloat16))):
-            if route is not None and fwa.kernel_route(qkv.dtype, hd, n) != route:
+            if route is not None and fwa.kernel_route(qkv.dtype, hd, n) != route[dt]:
                 raise AssertionError(f"{rep.row['name']} {tuple(qkv.shape)} {dt}: not route "
-                                     f"{route}")
+                                     f"{route[dt]}")
             got = fwa.window_attention(qkv, bias, **kw)
             errs[dt] = rel_err(got, fwa.window_attention_reference(qkv, bias, **kw))
             # nothing in the kernel depends on the order blocks run in
@@ -2627,15 +2643,91 @@ W12_FORWARD = dict(window_attention_tiled=52, patch_merge=3, patch_expand=6, ref
 W12_STEP = dict(window_attention_tiled=52, window_attention_bwd_tiled=48, patch_merge=3,
                 patch_merge_bwd=3, patch_expand=6, patch_expand_bwd=6, refine_head_res=1,
                 refine_head_bwd=1)
-# (B, Hp, Wp, C, heads, window, sh, sw): what each case is there for
+# (B, Hp, Wp, C, heads, window, sh, sw): what each case is there for, and the
+# family each type takes: bf16 at head widths a multiple of 16 the tiled
+# mma.sync kernels (one-block up to 144 tokens, and in the backward up to
+# head width 32; split beyond), float32 and other widths the CUDA-core ones,
+# whose head width picks the columns a thread owns (OC 1, 2, 4, 8 up to 16,
+# 32, 64, 128)
+MMA_ROUTES = {"f32": "tiled", "bf16": "tiled mma.sync"}
+CORE_ROUTES = {"f32": "tiled", "bf16": "tiled"}
 W12_CORNERS = [
-    ((2, 10, 26, 64, 2, (5, 13), 2, 6), "65 tokens: one past the banded kernels, 2 tiles"),
-    ((1, 24, 36, 32, 1, (12, 12), 0, 0), "144 tokens unshifted, one image, one head"),
-    ((2, 24, 24, 96, 6, (12, 12), 6, 6), "144 tokens shifted, head width 16"),
-    ((1, 44, 44, 128, 2, (22, 22), 11, 11), "484 tokens (window 22, shift 11), head width 64"),
-    ((1, 24, 24, 256, 2, (24, 24), 0, 0), "576 tokens (window 24): one window, head width 128"),
-    ((2, 36, 24, 72, 3, (12, 12), 6, 6), "head width 24: columns past the width"),
+    ((2, 10, 26, 64, 2, (5, 13), 2, 6),
+     "65 tokens: one row in the last band, keys not a multiple of 8", MMA_ROUTES),
+    ((1, 24, 36, 32, 1, (12, 12), 0, 0), "144 tokens unshifted, one image, one head",
+     MMA_ROUTES),
+    ((2, 24, 24, 96, 6, (12, 12), 6, 6), "144 tokens shifted, head width 16", MMA_ROUTES),
+    ((2, 24, 24, 128, 2, (12, 12), 6, 6),
+     "head width 64: one-block forward, split backward", MMA_ROUTES),
+    ((1, 24, 36, 256, 2, (12, 12), 6, 0),
+     "head width 128, shift on one axis: one stage of the forward's ring", MMA_ROUTES),
+    ((1, 24, 24, 96, 2, (12, 12), 0, 6), "head width 48: columns past the width",
+     MMA_ROUTES),
+    ((4, 72, 72, 512, 4, (9, 9), 4, 4),
+     "81 tokens, head width 128: split backward, groups of 4 windows", MMA_ROUTES),
+    ((1, 44, 44, 128, 2, (22, 22), 11, 11),
+     "484 tokens (window 22, shift 11), head width 64: the key split", MMA_ROUTES),
+    ((1, 24, 24, 256, 2, (24, 24), 0, 0),
+     "576 tokens (window 24): one window, head width 128, the key split", MMA_ROUTES),
+    ((2, 36, 24, 72, 3, (12, 12), 6, 6), "head width 24: the CUDA-core kernels in bf16 (OC 2)",
+     CORE_ROUTES),
+    ((2, 24, 24, 16, 2, (12, 12), 6, 6), "head width 8: the CUDA-core kernels in bf16 (OC 1)",
+     CORE_ROUTES),
+    ((1, 24, 36, 80, 2, (12, 12), 6, 0), "head width 40: the CUDA-core kernels in bf16 (OC 4)",
+     CORE_ROUTES),
+    ((1, 24, 24, 144, 2, (12, 12), 0, 6),
+     "head width 72: the CUDA-core kernels in bf16 (OC 8)", CORE_ROUTES),
 ]
+GUARD = 4096  # NaN elements before and after every buffer the kernels write
+
+
+def _guarded(shape, dtype):
+    """A NaN-filled buffer with ``GUARD`` elements before and after the
+    returned view of ``shape`` (16-byte aligned: GUARD is a multiple of 8)."""
+    numel = math.prod(shape)
+    buf = torch.full((numel + 2 * GUARD,), float("nan"), dtype=dtype, device="cuda")
+    return buf, buf[GUARD:GUARD + numel].view(shape)
+
+
+def check_attention_guards(build, fwa, gen, cases) -> None:
+    """The tiled kernels write every element of ctx, dqkv and dbias and
+    nothing outside them or their scratch, and leave their inputs as they
+    were (compute-sanitizer does not run on this card): each output and the
+    scratch sized as ``bwd_plan`` sizes it lie in NaN-filled buffers with NaN
+    guards, launched through the C entry points at the wrappers' plans, in
+    both types.  ``cases``: (B, Hp, Wp, C, heads, window, sh, sw)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, hp, wp, dim, heads, (wh, ww), sh, sw in cases:
+        n, n_win, hd = wh * ww, (hp // wh) * (wp // ww), dim // heads
+        qkv32 = torch.randn((b, hp, wp, 3 * dim), generator=gen, device="cuda")
+        d32 = torch.randn((b, hp, wp, dim), generator=gen, device="cuda")
+        bias = torch.randn((heads, n, n), generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv, d = qkv32.to(dtype), d32.to(dtype)
+            route = fwa._route(qkv, wh, ww, heads, sh, sw)
+            plan, scratch = fwa.bwd_plan(route, b, n_win, heads, n, sms, hd)
+            ints = [b, hp, wp, dim, heads, wh, ww, sh, sw, route]
+            inputs = [t.clone() for t in (qkv, d, bias)]
+            obuf, out = _guarded((b, hp, wp, dim), dtype)
+            gbuf, dqkv = _guarded(tuple(qkv.shape), dtype)
+            pbuf, part = _guarded(scratch, torch.float32)
+            bbuf, dbias = _guarded((heads, n, n), torch.float32)
+            build.launch("window_attention_tiled", "ssa_window_attention_fwd", [qkv, bias, out],
+                         ints + [fwa.fwd_plan(route, b, n_win, heads, n, sms, hd)], dtype)
+            build.launch("window_attention_bwd_tiled", "ssa_window_attention_bwd",
+                         [qkv, d, bias, dqkv, part, dbias], ints + [plan], dtype)
+            torch.cuda.synchronize()
+            label = (f"qkv{tuple(qkv.shape)} window {(wh, ww)} heads {heads} shift {(sh, sw)} "
+                     f"{dtype} route {route}")
+            for name, buf, view in (("ctx", obuf, out), ("dqkv", gbuf, dqkv),
+                                    ("dbias", bbuf, dbias), ("scratch", pbuf, None)):
+                if not (buf[:GUARD].isnan().all() and buf[-GUARD:].isnan().all()):
+                    raise AssertionError(f"guards {label}: a write past {name}")
+                if view is not None and view.isnan().any():
+                    raise AssertionError(f"guards {label}: {name} not wholly written")
+            if not all(torch.equal(x, y) for x, y in zip(inputs, (qkv, d, bias))):
+                raise AssertionError(f"guards {label}: an input changed")
+            print(f"  guards {label}: every output element written, nothing outside")
 
 
 def window12_cli(build, card: str) -> None:
@@ -2707,14 +2799,20 @@ def window12(train_args, build, fwa, wa, gen, rng, images, card: str) -> tuple:
     MSUNet = train_args[0]
     t0 = time.perf_counter()
     print(f"(a) tiled kernels vs plain, window {W12} (512^2 batch 8 shapes; ms are bf16):")
-    attn = check_attention(fwa, wa, gen, ws=W12, route=fwa.ROUTE_TILED, rep=KernelReport(
-        "window_attention_tiled", "fused_window_attention.cu", "fused_window_attention.py:561"))
+    routes = {"f32": fwa.ROUTE_TILED, "bf16": fwa.ROUTE_TILED_MMA}
+    attn = check_attention(fwa, wa, gen, ws=W12, route=routes, rep=KernelReport(
+        "window_attention_tiled", "fused_window_attention_tiled.cu",
+        "fused_window_attention.py:561"))
     torch.cuda.empty_cache()
-    attn_bwd = check_attention_bwd(fwa, wa, gen, ws=W12, route=fwa.ROUTE_TILED, rep=KernelReport(
-        "window_attention_bwd_tiled", "fused_window_attention.cu",
+    attn_bwd = check_attention_bwd(fwa, wa, gen, ws=W12, route=routes, rep=KernelReport(
+        "window_attention_bwd_tiled", "fused_window_attention_tiled.cu",
         "fused_window_attention.py:597"))
     torch.cuda.empty_cache()
     check_attention_corners(fwa, wa, gen, W12_CORNERS, timed=True)
+    torch.cuda.empty_cache()
+    check_attention_guards(build, fwa, gen, [
+        (B, hp, wp, STAGES[stage][0], STAGES[stage][1], (W12, W12), sh, sw)
+        for stage, hp, wp, sh, sw in stage_shapes(wa, W12)] + [c[0] for c in W12_CORNERS])
     torch.cuda.empty_cache()
     print(f"phase 18 (a): {time.perf_counter() - t0:.1f} s")
 

@@ -12,7 +12,7 @@
 //
 // Bound on the H100: memory.  Per token it reads 3C and writes C values;
 // the two 49x49xhd products are ~0.6 MFLOP per window and head, well under
-// the card's 295 FLOP/byte balance point.  Four kernel families, chosen by
+// the card's 295 FLOP/byte balance point.  Five kernel families, chosen by
 // the wrapper from the static shape (`Route`); the first three take windows
 // of up to 64 tokens:
 //  * bfloat16 at head widths 16, 32 and 64 (the deployment type; 32 at every
@@ -24,16 +24,22 @@
 //    window padded to 64 tokens, scores in shared memory;
 //  * float32 (the parity type) and the remaining widths: the same block on
 //    the CUDA cores in float32;
-//  * windows of more than 64 tokens (window 12 and up), float32 and bfloat16
-//    at head widths up to 128: the tiled kernels at the end of this file,
-//    which stream 64-token tiles of queries and keys through shared memory.
+// and windows of more than 64 tokens (window 12 and up) take the tiled
+// kernels of fused_window_attention_tiled.cu:
+//  * bfloat16 at head widths that are a multiple of 16 up to 128: the tiled
+//    `mma.sync` kernels (16-row bands on the tensor cores, a band's whole
+//    score row in registers up to 144 tokens, key chunks split over blocks
+//    beyond);
+//  * float32 and the other bfloat16 widths up to 128: the tiled kernels on
+//    the CUDA cores, which stream 64-token tiles of queries and keys
+//    through shared memory.
 // All gather a window's tokens' q/k/v slices by index arithmetic straight
 // from the spatial layout (no window-partition copy in device memory) and
 // compute the shift mask from the region ids of the rolled grid instead of
 // reading a (nW, N, N) mask array.
 #include <mma.h>
 
-#include "common.cuh"
+#include "fused_window_attention.cuh"
 
 namespace ssa {
 
@@ -120,8 +126,6 @@ __global__ void window_attention_fwd_kernel(const T* __restrict__ qkv,
 // bias, mask and softmax run between them one warp per row, as above.
 // Needs hd % 16 == 0 (32 on the main path) and N <= 64.
 // ---------------------------------------------------------------------------
-constexpr int kRowsPad = 64;
-enum Route { kRouteCore = 0, kRouteWmma = 1, kRouteMma = 2, kRouteTiled = 3 };
 
 __global__ void __launch_bounds__(128)
 window_attention_fwd_wmma_kernel(const __nv_bfloat16* __restrict__ qkv,
@@ -715,7 +719,6 @@ static cudaError_t launch_bwd(const void* qkv, const void* dctx, const void* bia
 //   stored.  Rows of the ring past an operand alias the next operand or a
 //   zeroed tail, so every fragment load is finite.
 // ===========================================================================
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMmaThreads = 128;
 constexpr int kFwdStages = 2;
 constexpr int kBwdStages = 2;
@@ -756,35 +759,6 @@ template <int HD>
 __device__ __forceinline__ int swz(int r) {
   constexpr int kShift = HD == 16 ? 2 : (HD == 32 ? 1 : 0);
   return (r >> kShift) & (HD / 8 - 1);
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 4x4 transpose of 32-bit items among the four lanes of a quad: before, lane
-// t holds piece t of items 0..3; after, lane t holds pieces 0..3 of item t.
-__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
-  const bool odd = t & 1, hi = t & 2;
-  uint32_t r;
-  r = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[1], 1);
-  if (odd) v[0] = r; else v[1] = r;
-  r = __shfl_xor_sync(0xffffffffu, odd ? v[2] : v[3], 1);
-  if (odd) v[2] = r; else v[3] = r;
-  r = __shfl_xor_sync(0xffffffffu, hi ? v[0] : v[2], 2);
-  if (hi) v[0] = r; else v[2] = r;
-  r = __shfl_xor_sync(0xffffffffu, hi ? v[1] : v[3], 2);
-  if (hi) v[1] = r; else v[3] = r;
 }
 
 // A warp's 16 x HD band in accumulator layout (lane: rows lo/hi, columns
@@ -1328,32 +1302,6 @@ window_attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __rest
   }
 }
 
-// dbias[h][i][j] = sum over the blocks c of a head of part[c][h][i][j]
-// (partials with rows `ps` floats apart), in a fixed order: eight strided
-// sums, then their sum.  Block 32 x 8: 32 outputs, 8 lanes over the blocks.
-static __global__ void __launch_bounds__(256)
-dbias_sum_kernel(const float* __restrict__ part, float* __restrict__ dbias, int chunks, int rows,
-                 int n, int ps) {
-  __shared__ float red[8][33];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int o = blockIdx.x * 32 + tx;  // over (heads * n) rows x n columns
-  float acc = 0.0f;
-  if (o < rows * n) {
-    const int row = o / n, j = o - row * n;
-    const float* src = part + (long long)row * ps + j;
-    const long long stride = (long long)rows * ps;
-    for (int c = ty; c < chunks; c += 8) acc += src[c * stride];
-  }
-  red[ty][tx] = acc;
-  __syncthreads();
-  if (ty == 0 && o < rows * n) {
-    float s = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) s += red[k][tx];
-    dbias[o] = s;
-  }
-}
-
 static MmaGeom mma_geom(int B, int Hp, int Wp, int C, int heads, int wh, int ww, int sh, int sw,
                         int chunks) {
   const double scale = pow((double)(C / heads), -0.5);
@@ -1415,563 +1363,23 @@ static cudaError_t bwd_mma_by_width(const void* qkv, const void* dctx, const voi
   }
 }
 
-// ===========================================================================
-// Windows of more than 64 tokens (`kRouteTiled`): window 12 (144 tokens), 22
-// (484) or 24 (576), float32 and bfloat16, head widths up to 128.
-//
-// Replaces: the same Pallas kernels, `_fwd_kernel` and `_bwd_kernel` of
-// semantic_segmentation_of_stylegan2_artifacts_tpu/ops/fused_window_attention.py,
-// over the part of their domain (windows of up to 512 tokens there) that the
-// kernels above do not take.  Same contract and the same rounding: the
-// probabilities are normalised in float32 and then rounded to the storage
-// type before P.v, dS is rounded before dq and dk, the rounded P gives dv,
-// and the bias gradient is summed from the float32 dS.
-//
-// Bound on the H100: bytes on paper (at window 12 and head width 32 a window
-// and head is ~2.7 MFLOP forward against ~37 KB of bf16 qkv and context); in
-// practice these kernels are bound by the CUDA cores: every product is
-// float32 FMAs over 64 x 64 tiles in shared memory, 16 x 16 threads each
-// owning a 4 x 4 block of rows ty + 16a and columns tx + 16b.  A window no
-// longer fits one block as an N x N score block, so queries and keys go
-// through in tiles of 64 tokens.  Tensor cores and TMA are later work.
-//
-// Forward: one block per (query tile, window, head, image) and two passes
-// over the key tiles.  The first takes each row's max and sum of
-// exponentials (running per thread, merged over the 16 threads of a row);
-// the second recomputes the logits, forms P = exp(x - max) / sum, rounds it
-// and adds P.v.  A one-pass online softmax would multiply unnormalised,
-// rounded values and not match the plain version's rounding.
-//
-// Backward: one block per (group of `plan` windows, head).  Per window:
-// (1) each query row's max, sum and rowsum(dP * P), three passes over the
-// key tiles per query tile; (2) key tiles outer, query tiles inner: P and dS
-// of the tile pair, rounded, through shared memory; dk and dv of the key
-// tile in registers, written once; dq of the tile's queries added into the
-// block's float32 scratch, the float32 dS into the block's bias-gradient
-// partial; (3) dq from the scratch.  Each element of the scratch and of the
-// partial is read and written by one thread only (the one that owns its row
-// and column in a tile), in a fixed order, so no atomics are needed and a
-// repeated launch gives the same bits; `dbias_sum_kernel` adds the partials
-// in a fixed order.  The scratch of a block and head is N rows of N + hd + 3
-// floats: the bias-gradient partial, dq, and the row's max, sum and rowsum.
-// ===========================================================================
-constexpr int kTile = 64;            // query rows and keys of a tile
-constexpr int kTiledThreads = 256;   // 16 x 16
-constexpr int kTiledMaxHd = 128;     // head widths of the tiled route
-constexpr int kPStride = kTile + 1;  // a P or dS tile row, padded against bank conflicts
-
-struct TiledGeom {
-  int B, Hp, Wp, C, heads, wh, ww, sh, sw;
-  int n, hd, ld, nww, nwin;  // ld: row stride of an operand tile (odd: no bank conflicts)
-  float scale;
-};
-
-static TiledGeom tiled_geom(int B, int Hp, int Wp, int C, int heads, int wh, int ww, int sh,
-                            int sw) {
-  TiledGeom g;
-  g.B = B;
-  g.Hp = Hp;
-  g.Wp = Wp;
-  g.C = C;
-  g.heads = heads;
-  g.wh = wh;
-  g.ww = ww;
-  g.sh = sh;
-  g.sw = sw;
-  g.n = wh * ww;
-  g.hd = C / heads;
-  g.ld = g.hd | 1;
-  g.nww = Wp / ww;
-  g.nwin = (Hp / wh) * g.nww;
-  g.scale = (float)pow((double)g.hd, -0.5);
-  return g;
-}
-
-// Row of token t of window (b, wr, wc) in the (B, Hp, Wp) grid.
-__device__ __forceinline__ long long tiled_tok(const TiledGeom& g, int b, int wr, int wc, int t) {
-  const int r = t / g.ww;
-  return ((long long)b * g.Hp + wr * g.wh + r) * g.Wp + wc * g.ww + (t - r * g.ww);
-}
-
-// Region id of token t of window (wr, wc) in the rolled, padded grid (3 row
-// regions x 3 column regions, ops/window_attention.py shifted_window_mask).
-__device__ __forceinline__ int tiled_region(const TiledGeom& g, int wr, int wc, int t) {
-  const int r = wr * g.wh + t / g.ww, c = wc * g.ww + t % g.ww;
-  return 3 * ((r >= g.Hp - g.wh) + (r >= g.Hp - g.sh)) + (c >= g.Wp - g.ww) + (c >= g.Wp - g.sw);
-}
-
-// Tokens t0 .. t0 + 63 of window (b, wr, wc) into a float32 tile with rows
-// ld apart: channels [off, off + hd) of `src` rows `stride` values long;
-// tokens past N give zero rows.
-template <typename T>
-__device__ __forceinline__ void tiled_load(float* dst, const T* __restrict__ src,
-                                           long long stride, int off, const TiledGeom& g, int b,
-                                           int wr, int wc, int t0) {
-  for (int e = threadIdx.x; e < kTile * g.hd; e += kTiledThreads) {
-    const int r = e / g.hd, d = e - r * g.hd, t = t0 + r;
-    dst[r * g.ld + d] = t < g.n ? to_f(src[tiled_tok(g, b, wr, wc, t) * stride + off + d]) : 0.0f;
-  }
-}
-
-// acc[a][b] = x[ty + 16a] . y[tx + 16b] over the hd columns of two tiles.
-__device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* x, const float* y,
-                                         int hd, int ld, int ty, int tx) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
-  for (int d = 0; d < hd; ++d) {
-    float xa[4], yb[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) xa[a] = x[(ty + 16 * a) * ld + d];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) yb[b] = y[(tx + 16 * b) * ld + d];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(xa[a], yb[b], acc[a][b]);
-  }
-}
-
-// Raw scores of query rows i0 + ty + 16a and keys j0 + tx + 16b -> logits:
-// scaled, + bias, + the -100 shift mask; keys past N -inf.  Rows past N stay
-// finite (no bias, no mask) and are never stored.
-__device__ __forceinline__ void tiled_logits(float (&s)[4][4], const TiledGeom& g,
-                                             const float* __restrict__ bias_h, int i0, int j0,
-                                             int wr, int wc, int ty, int tx) {
-  const bool masked = (g.sh | g.sw) != 0;
-  int gj[4];
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int j = j0 + tx + 16 * b;
-    gj[b] = masked && j < g.n ? tiled_region(g, wr, wc, j) : 0;
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ty + 16 * a;
-    const bool iv = i < g.n;
-    const int gi = masked && iv ? tiled_region(g, wr, wc, i) : 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int j = j0 + tx + 16 * b;
-      float x = s[a][b] * g.scale;
-      if (iv && j < g.n) {
-        x += __ldg(bias_h + (long long)i * g.n + j);
-        if (masked && gi != gj[b]) x += -100.0f;
-      }
-      s[a][b] = j < g.n ? x : -INFINITY;
-    }
-  }
-}
-
-// Over the 16 threads of a row (lanes tx of one half-warp), in a fixed order.
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// A thread's running max m and sum l of exp(x - m) over its logits of rows a.
-__device__ __forceinline__ void tiled_running(float (&m)[4], float (&l)[4],
-                                              const float (&s)[4][4]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const float mx = fmaxf(fmaxf(s[a][0], s[a][1]), fmaxf(s[a][2], s[a][3]));
-    const float mn = fmaxf(m[a], mx);
-    if (mn == -INFINITY) continue;  // no key of this thread yet
-    float sum = l[a] * expf(m[a] - mn);
-#pragma unroll
-    for (int b = 0; b < 4; ++b) sum += expf(s[a][b] - mn);
-    m[a] = mn;
-    l[a] = sum;
-  }
-}
-
-// The rows' max and sum of exponentials from the 16 threads' running ones.
-__device__ __forceinline__ void tiled_merge(float (&m)[4], float (&l)[4]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const float mr = row_max16(m[a]);  // finite: key 0 is in every row
-    l[a] = row_sum16(m[a] == -INFINITY ? 0.0f : l[a] * expf(m[a] - mr));
-    m[a] = mr;
-  }
-}
-
-// Max and sum of exponentials of query rows i0 + ty + 16a (q tile in `qs`)
-// over every key tile of head channels [off, off + hd), loaded into `ks`.
-template <typename T>
-__device__ __forceinline__ void tiled_row_stats(float (&m)[4], float (&l)[4], const float* qs,
-                                                float* ks, const T* __restrict__ qkv,
-                                                const float* __restrict__ bias_h,
-                                                const TiledGeom& g, int off, int b, int wr, int wc,
-                                                int i0, int ty, int tx) {
-  const int tiles = (g.n + kTile - 1) / kTile;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = -INFINITY;
-    l[a] = 0.0f;
-  }
-  for (int kt = 0; kt < tiles; ++kt) {
-    __syncthreads();  // the tile before is done with ks; qs has landed
-    tiled_load<T>(ks, qkv, 3LL * g.C, g.C + off, g, b, wr, wc, kt * kTile);
-    __syncthreads();
-    float s[4][4];
-    tile_dot(s, qs, ks, g.hd, g.ld, ty, tx);
-    tiled_logits(s, g, bias_h, i0, kt * kTile, wr, wc, ty, tx);
-    tiled_running(m, l, s);
-  }
-  tiled_merge(m, l);
-}
-
-// grid (windows * query tiles, heads, images); the head is blockIdx.y.
-template <typename T, int OC>
-__global__ void __launch_bounds__(kTiledThreads)
-window_attention_fwd_tiled_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
-                                  T* __restrict__ out, const TiledGeom g) {
-  const int tiles = (g.n + kTile - 1) / kTile;
-  const int win = blockIdx.x / tiles, qt = blockIdx.x - win * tiles;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int wr = win / g.nww, wc = win - wr * g.nww;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  extern __shared__ float smem[];
-  float* qs = smem;                // [64][ld] queries
-  float* ks = qs + kTile * g.ld;   // [64][ld] keys
-  float* vs = ks + kTile * g.ld;   // [64][ld] values
-  float* ps = vs + kTile * g.ld;   // [64][65] rounded probabilities
-  const long long c3 = 3LL * g.C;
-  const int off = h * g.hd, i0 = qt * kTile;
-  const float* bias_h = bias + (long long)h * g.n * g.n;
-
-  tiled_load<T>(qs, qkv, c3, off, g, b, wr, wc, i0);
-  float m[4], l[4];
-  tiled_row_stats<T>(m, l, qs, ks, qkv, bias_h, g, off, b, wr, wc, i0, ty, tx);
-
-  float o[4][OC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < OC; ++c) o[a][c] = 0.0f;
-  for (int kt = 0; kt < tiles; ++kt) {
-    const int j0 = kt * kTile;
-    __syncthreads();  // the tile before is done with ks, vs and ps
-    tiled_load<T>(ks, qkv, c3, g.C + off, g, b, wr, wc, j0);
-    tiled_load<T>(vs, qkv, c3, 2 * g.C + off, g, b, wr, wc, j0);
-    __syncthreads();
-    float s[4][4];
-    tile_dot(s, qs, ks, g.hd, g.ld, ty, tx);
-    tiled_logits(s, g, bias_h, i0, j0, wr, wc, ty, tx);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb)
-        ps[(ty + 16 * a) * kPStride + tx + 16 * bb] = round_to<T>(expf(s[a][bb] - m[a]) / l[a]);
-    __syncthreads();
-    const int jn = min(kTile, g.n - j0);
-    for (int j = 0; j < jn; ++j) {
-      float pa[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = ps[(ty + 16 * a) * kPStride + j];
-#pragma unroll
-      for (int c = 0; c < OC; ++c) {
-        const int d = tx + 16 * c;
-        const float v = d < g.hd ? vs[j * g.ld + d] : 0.0f;
-#pragma unroll
-        for (int a = 0; a < 4; ++a) o[a][c] = fmaf(pa[a], v, o[a][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ty + 16 * a;
-    if (i >= g.n) continue;
-    T* dst = out + tiled_tok(g, b, wr, wc, i) * g.C + off;
-#pragma unroll
-    for (int c = 0; c < OC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < g.hd) dst[d] = from_f<T>(o[a][c]);
-    }
-  }
-}
-
-// grid (blocks of `group` windows, heads).
-template <typename T, int OC>
-__global__ void __launch_bounds__(kTiledThreads)
-window_attention_bwd_tiled_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
-                                  const float* __restrict__ bias, T* __restrict__ dqkv,
-                                  float* __restrict__ part, const TiledGeom g, int group) {
-  const int tiles = (g.n + kTile - 1) / kTile;
-  const int h = blockIdx.y;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  extern __shared__ float smem[];
-  float* qs = smem;                  // [64][ld] queries
-  float* dcs = qs + kTile * g.ld;    // [64][ld] the queries' dctx
-  float* ks = dcs + kTile * g.ld;    // [64][ld] keys
-  float* vs = ks + kTile * g.ld;     // [64][ld] values
-  float* ps = vs + kTile * g.ld;     // [64][65] rounded P
-  float* dss = ps + kTile * kPStride;  // [64][65] rounded dS
-  const long long c3 = 3LL * g.C;
-  const int off = h * g.hd;
-  const float* bias_h = bias + (long long)h * g.n * g.n;
-  // the block's scratch rows: bias-gradient partial [0, N), dq [N, N + hd),
-  // the row's max, sum and rowsum(dP * P) at N + hd, +1, +2
-  const int lds = g.n + g.hd + 3;
-  float* pb = part + ((long long)blockIdx.x * g.heads + h) * g.n * lds;
-  float* stats = pb + g.n + g.hd;
-
-  for (int k = 0; k < group; ++k) {
-    const int gw = blockIdx.x * group + k;
-    if (gw >= g.B * g.nwin) break;
-    const int b = gw / g.nwin, win = gw - b * g.nwin;
-    const int wr = win / g.nww, wc = win - wr * g.nww;
-
-    // (1) the rows' statistics
-    for (int qt = 0; qt < tiles; ++qt) {
-      const int i0 = qt * kTile;
-      __syncthreads();  // the window or tile before is done with qs and dcs
-      tiled_load<T>(qs, qkv, c3, off, g, b, wr, wc, i0);
-      tiled_load<T>(dcs, dctx, g.C, off, g, b, wr, wc, i0);
-      float m[4], l[4], rs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      tiled_row_stats<T>(m, l, qs, ks, qkv, bias_h, g, off, b, wr, wc, i0, ty, tx);
-      for (int kt = 0; kt < tiles; ++kt) {
-        const int j0 = kt * kTile;
-        __syncthreads();
-        tiled_load<T>(ks, qkv, c3, g.C + off, g, b, wr, wc, j0);
-        tiled_load<T>(vs, qkv, c3, 2 * g.C + off, g, b, wr, wc, j0);
-        __syncthreads();
-        float s[4][4], dp[4][4];
-        tile_dot(s, qs, ks, g.hd, g.ld, ty, tx);
-        tile_dot(dp, dcs, vs, g.hd, g.ld, ty, tx);
-        tiled_logits(s, g, bias_h, i0, j0, wr, wc, ty, tx);
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) rs[a] += expf(s[a][bb] - m[a]) / l[a] * dp[a][bb];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        rs[a] = row_sum16(rs[a]);
-        const int i = i0 + ty + 16 * a;
-        if (tx == 0 && i < g.n) {
-          stats[(long long)i * lds] = m[a];
-          stats[(long long)i * lds + 1] = l[a];
-          stats[(long long)i * lds + 2] = rs[a];
-        }
-      }
-    }
-
-    // (2) key tiles outer, query tiles inner
-    for (int kt = 0; kt < tiles; ++kt) {
-      const int j0 = kt * kTile;
-      __syncthreads();  // the statistics are written; the tile before is done with ks, vs
-      tiled_load<T>(ks, qkv, c3, g.C + off, g, b, wr, wc, j0);
-      tiled_load<T>(vs, qkv, c3, 2 * g.C + off, g, b, wr, wc, j0);
-      float dk[4][OC], dv[4][OC];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < OC; ++c) dk[a][c] = dv[a][c] = 0.0f;
-      for (int qt = 0; qt < tiles; ++qt) {
-        const int i0 = qt * kTile;
-        __syncthreads();  // the query tile before is done with qs, dcs, ps, dss
-        tiled_load<T>(qs, qkv, c3, off, g, b, wr, wc, i0);
-        tiled_load<T>(dcs, dctx, g.C, off, g, b, wr, wc, i0);
-        __syncthreads();
-        float s[4][4], dp[4][4];
-        tile_dot(s, qs, ks, g.hd, g.ld, ty, tx);
-        tile_dot(dp, dcs, vs, g.hd, g.ld, ty, tx);
-        tiled_logits(s, g, bias_h, i0, j0, wr, wc, ty, tx);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int i = i0 + ty + 16 * a;
-          const bool iv = i < g.n;
-          const float* st = stats + (long long)(iv ? i : 0) * lds;
-          const float mi = st[0], li = st[1], di = st[2];
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) {
-            const int j = j0 + tx + 16 * bb;
-            float p = 0.0f, ds = 0.0f;
-            if (iv && j < g.n) {
-              p = expf(s[a][bb] - mi) / li;
-              ds = p * (dp[a][bb] - di);
-              float* acc = pb + (long long)i * lds + j;
-              *acc = k == 0 ? ds : *acc + ds;
-            }
-            ps[(ty + 16 * a) * kPStride + tx + 16 * bb] = round_to<T>(p);
-            dss[(ty + 16 * a) * kPStride + tx + 16 * bb] = round_to<T>(ds);
-          }
-        }
-        __syncthreads();
-        // dk = dS^T.q, dv = P^T.dctx of keys j0 + ty + 16a
-        const int in = min(kTile, g.n - i0);
-        for (int i = 0; i < in; ++i) {
-          float pa[4], da[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            pa[a] = ps[i * kPStride + ty + 16 * a];
-            da[a] = dss[i * kPStride + ty + 16 * a];
-          }
-#pragma unroll
-          for (int c = 0; c < OC; ++c) {
-            const int d = tx + 16 * c;
-            const float qv = d < g.hd ? qs[i * g.ld + d] : 0.0f;
-            const float cv = d < g.hd ? dcs[i * g.ld + d] : 0.0f;
-#pragma unroll
-            for (int a = 0; a < 4; ++a) {
-              dk[a][c] = fmaf(da[a], qv, dk[a][c]);
-              dv[a][c] = fmaf(pa[a], cv, dv[a][c]);
-            }
-          }
-        }
-        // dq += dS.k of queries i0 + ty + 16a, into the scratch
-        float dq[4][OC];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < OC; ++c) dq[a][c] = 0.0f;
-        const int jn = min(kTile, g.n - j0);
-        for (int j = 0; j < jn; ++j) {
-          float da[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) da[a] = dss[(ty + 16 * a) * kPStride + j];
-#pragma unroll
-          for (int c = 0; c < OC; ++c) {
-            const int d = tx + 16 * c;
-            const float kv = d < g.hd ? ks[j * g.ld + d] : 0.0f;
-#pragma unroll
-            for (int a = 0; a < 4; ++a) dq[a][c] = fmaf(da[a], kv, dq[a][c]);
-          }
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int i = i0 + ty + 16 * a;
-          if (i >= g.n) continue;
-          float* acc = pb + (long long)i * lds + g.n;
-#pragma unroll
-          for (int c = 0; c < OC; ++c) {
-            const int d = tx + 16 * c;
-            if (d < g.hd) acc[d] = kt == 0 ? dq[a][c] : acc[d] + dq[a][c];
-          }
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int j = j0 + ty + 16 * a;
-        if (j >= g.n) continue;
-        T* dst = dqkv + tiled_tok(g, b, wr, wc, j) * c3 + off;
-#pragma unroll
-        for (int c = 0; c < OC; ++c) {
-          const int d = tx + 16 * c;
-          if (d < g.hd) {
-            dst[g.C + d] = from_f<T>(dk[a][c] * g.scale);
-            dst[2 * g.C + d] = from_f<T>(dv[a][c]);
-          }
-        }
-      }
-    }
-
-    // (3) dq, from this thread's own elements of the scratch
-    for (int qt = 0; qt < tiles; ++qt) {
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = qt * kTile + ty + 16 * a;
-        if (i >= g.n) continue;
-        const float* acc = pb + (long long)i * lds + g.n;
-        T* dst = dqkv + tiled_tok(g, b, wr, wc, i) * c3 + off;
-#pragma unroll
-        for (int c = 0; c < OC; ++c) {
-          const int d = tx + 16 * c;
-          if (d < g.hd) dst[d] = from_f<T>(acc[d] * g.scale);
-        }
-      }
-    }
-  }
-}
-
-template <typename T, int OC>
-static cudaError_t launch_fwd_tiled(const void* qkv, const void* bias, void* out,
-                                    const TiledGeom& g, cudaStream_t st) {
-  const int smem = (int)sizeof(float) * (3 * kTile * g.ld + kTile * kPStride);
-  auto kern = window_attention_fwd_tiled_kernel<T, OC>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(g.nwin * ((g.n + kTile - 1) / kTile), g.heads, g.B);
-  kern<<<grid, kTiledThreads, smem, st>>>(static_cast<const T*>(qkv),
-                                           static_cast<const float*>(bias), static_cast<T*>(out),
-                                           g);
-  return cudaGetLastError();
-}
-
-template <typename T, int OC>
-static cudaError_t launch_bwd_tiled(const void* qkv, const void* dctx, const void* bias,
-                                    void* dqkv, void* part, void* dbias, const TiledGeom& g,
-                                    int group, cudaStream_t st) {
-  const int smem = (int)sizeof(float) * (4 * kTile * g.ld + 2 * kTile * kPStride);
-  auto kern = window_attention_bwd_tiled_kernel<T, OC>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  const int nblk = (g.B * g.nwin + group - 1) / group;
-  kern<<<dim3(nblk, g.heads), kTiledThreads, smem, st>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dctx), static_cast<const float*>(bias),
-      static_cast<T*>(dqkv), static_cast<float*>(part), g, group);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  dbias_sum_kernel<<<(g.heads * g.n * g.n + 31) / 32, dim3(32, 8), 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(dbias), nblk, g.heads * g.n, g.n,
-      g.n + g.hd + 3);
-  return cudaGetLastError();
-}
-
-// Storage type and per-thread output columns (a thread owns columns tx + 16c,
-// c < OC) are template parameters: OC 1, 2, 4, 8 up to head width 16, 32,
-// 64, 128.
-template <int OC>
-static cudaError_t fwd_tiled_oc(const void* qkv, const void* bias, void* out, const TiledGeom& g,
-                                int dtype, cudaStream_t st) {
-  return dtype == kBF16 ? launch_fwd_tiled<__nv_bfloat16, OC>(qkv, bias, out, g, st)
-                        : launch_fwd_tiled<float, OC>(qkv, bias, out, g, st);
-}
-template <int OC>
-static cudaError_t bwd_tiled_oc(const void* qkv, const void* dctx, const void* bias, void* dqkv,
-                                void* part, void* dbias, const TiledGeom& g, int group, int dtype,
-                                cudaStream_t st) {
-  return dtype == kBF16
-             ? launch_bwd_tiled<__nv_bfloat16, OC>(qkv, dctx, bias, dqkv, part, dbias, g, group,
-                                                   st)
-             : launch_bwd_tiled<float, OC>(qkv, dctx, bias, dqkv, part, dbias, g, group, st);
-}
-static cudaError_t fwd_tiled(const void* qkv, const void* bias, void* out, const TiledGeom& g,
-                             int dtype, cudaStream_t st) {
-  if (g.hd <= 16) return fwd_tiled_oc<1>(qkv, bias, out, g, dtype, st);
-  if (g.hd <= 32) return fwd_tiled_oc<2>(qkv, bias, out, g, dtype, st);
-  if (g.hd <= 64) return fwd_tiled_oc<4>(qkv, bias, out, g, dtype, st);
-  return fwd_tiled_oc<8>(qkv, bias, out, g, dtype, st);
-}
-static cudaError_t bwd_tiled(const void* qkv, const void* dctx, const void* bias, void* dqkv,
-                             void* part, void* dbias, const TiledGeom& g, int group, int dtype,
-                             cudaStream_t st) {
-  if (g.hd <= 16) return bwd_tiled_oc<1>(qkv, dctx, bias, dqkv, part, dbias, g, group, dtype, st);
-  if (g.hd <= 32) return bwd_tiled_oc<2>(qkv, dctx, bias, dqkv, part, dbias, g, group, dtype, st);
-  if (g.hd <= 64) return bwd_tiled_oc<4>(qkv, dctx, bias, dqkv, part, dbias, g, group, dtype, st);
-  return bwd_tiled_oc<8>(qkv, dctx, bias, dqkv, part, dbias, g, group, dtype, st);
-}
-
 }  // namespace ssa
 
 // Which kernel a call takes is decided by the wrapper from the static shape
 // (`route`: 0 the CUDA-core kernels, 1 the wmma kernels, 2 the mma.sync
-// kernels, 3 the tiled kernels) and only checked here.  `plan` is the number
-// of blocks per head for route 2 (forward and backward) and the windows per
-// block for the backward of routes 0, 1 and 3.
+// kernels, 3 the tiled kernels on the CUDA cores, 4 the tiled mma.sync
+// kernels) and only checked here.  `plan` is the number of blocks per head
+// for route 2 (forward and backward) and for route 4 at up to 144 tokens,
+// the windows per block for the backward of routes 0, 1 and 3 and of route 4
+// beyond (ops/fused_window_attention.py::bwd_plan).
 static bool route_ok(int route, int dtype, int C, int heads, int wh, int ww, int sh, int sw,
                      int plan) {
   const int hd = C / heads, n = wh * ww;
   if (plan < 1 || hd < 1) return false;
   // windows of more than 64 tokens take the tiled kernels, and only those
   if (route == ssa::kRouteTiled) return n > ssa::kRowsPad && hd <= ssa::kTiledMaxHd;
+  if (route == ssa::kRouteTiledMma)
+    return n > ssa::kRowsPad && dtype == ssa::kBF16 && hd % 16 == 0 && hd <= ssa::kTiledMaxHd;
   if (n > ssa::kRowsPad) return false;
   if (route == ssa::kRouteCore) return true;
   if (dtype != ssa::kBF16 || hd % 16) return false;
@@ -1986,8 +1394,9 @@ extern "C" int ssa_window_attention_fwd(const void* qkv, const void* bias, void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!route_ok(route, dtype, C, heads, wh, ww, sh, sw, plan)) return (int)cudaErrorInvalidValue;
   if (route == ssa::kRouteTiled)
-    return (int)ssa::fwd_tiled(qkv, bias, out, ssa::tiled_geom(B, Hp, Wp, C, heads, wh, ww, sh, sw),
-                               dtype, st);
+    return (int)ssa::tiled_fwd(qkv, bias, out, B, Hp, Wp, C, heads, wh, ww, sh, sw, dtype, st);
+  if (route == ssa::kRouteTiledMma)
+    return (int)ssa::tiled_mma_fwd(qkv, bias, out, B, Hp, Wp, C, heads, wh, ww, sh, sw, plan, st);
   if (route == ssa::kRouteMma) {
     const ssa::MmaGeom g = ssa::mma_geom(B, Hp, Wp, C, heads, wh, ww, sh, sw, plan);
     return (int)(wh * ww <= 56 ? ssa::fwd_mma_by_width<7>(qkv, bias, out, g, st)
@@ -2001,13 +1410,37 @@ extern "C" int ssa_window_attention_fwd(const void* qkv, const void* bias, void*
   return (int)ssa::launch<float>(qkv, bias, out, B, Hp, Wp, C, heads, wh, ww, sh, sw, st);
 }
 
+// The floats of the backward's scratch `part` that a launch of `route` with
+// `plan` lays out (-1: no such launch): the per-block bias-gradient partials
+// (plan, heads, N, 56 or 64) for route 2 (rows padded to the key tiles: 56
+// floats up to 56 tokens, else 64), (ceil(B*nW/plan), heads, N, N) for
+// routes 0 and 1, (ceil(B*nW/plan), heads, N, N + hd + 3) for route 3 (each
+// row followed by the block's dq accumulator and row statistics), and for
+// route 4 what fused_window_attention_tiled.cu's `tiled_mma_bwd` lays out.
+// The wrapper holds the scratch it allocates against this before a launch.
+extern "C" long long ssa_window_attention_bwd_scratch(int B, int Hp, int Wp, int C, int heads,
+                                                      int wh, int ww, int route, int plan) {
+  const long long n = wh * ww, hd = C / heads, total = (long long)B * (Hp / wh) * (Wp / ww);
+  if (plan < 1 || heads < 1 || n < 1) return -1;
+  const long long blocks = (total + plan - 1) / plan;
+  switch (route) {
+    case ssa::kRouteCore:
+    case ssa::kRouteWmma:
+      return blocks * heads * n * n;
+    case ssa::kRouteMma:
+      return (long long)plan * heads * n * (n <= 56 ? 56 : 64);
+    case ssa::kRouteTiled:
+      return blocks * heads * n * (n + hd + 3);
+    case ssa::kRouteTiledMma:
+      return ssa::tiled_mma_bwd_scratch(B, Hp, Wp, C, heads, wh, ww, plan);
+    default:
+      return -1;
+  }
+}
+
 // qkv/dqkv (B,Hp,Wp,3C), dctx (B,Hp,Wp,C) in the storage type; bias and
-// dbias (heads,N,N) float32; part float32 scratch for the per-block
-// bias-gradient partials: (plan, heads, N, 56 or 64) for route 2 (rows
-// padded to the key tiles: 56 floats up to 56 tokens, else 64),
-// (ceil(B*nW/plan), heads, N, N) for routes 0 and 1, and
-// (ceil(B*nW/plan), heads, N, N + hd + 3) for route 3 (each row followed by
-// the block's dq accumulator and row statistics).
+// dbias (heads,N,N) float32; part float32 scratch of at least
+// ssa_window_attention_bwd_scratch floats.
 extern "C" int ssa_window_attention_bwd(const void* qkv, const void* dctx, const void* bias,
                                         void* dqkv, void* part, void* dbias, int B, int Hp,
                                         int Wp, int C, int heads, int wh, int ww, int sh, int sw,
@@ -2015,9 +1448,11 @@ extern "C" int ssa_window_attention_bwd(const void* qkv, const void* dctx, const
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!route_ok(route, dtype, C, heads, wh, ww, sh, sw, plan)) return (int)cudaErrorInvalidValue;
   if (route == ssa::kRouteTiled)
-    return (int)ssa::bwd_tiled(qkv, dctx, bias, dqkv, part, dbias,
-                               ssa::tiled_geom(B, Hp, Wp, C, heads, wh, ww, sh, sw), plan, dtype,
-                               st);
+    return (int)ssa::tiled_bwd(qkv, dctx, bias, dqkv, part, dbias, B, Hp, Wp, C, heads, wh, ww,
+                               sh, sw, plan, dtype, st);
+  if (route == ssa::kRouteTiledMma)
+    return (int)ssa::tiled_mma_bwd(qkv, dctx, bias, dqkv, part, dbias, B, Hp, Wp, C, heads, wh,
+                                   ww, sh, sw, plan, st);
   if (route == ssa::kRouteMma) {
     const ssa::MmaGeom g = ssa::mma_geom(B, Hp, Wp, C, heads, wh, ww, sh, sw, plan);
     return (int)(wh * ww <= 56

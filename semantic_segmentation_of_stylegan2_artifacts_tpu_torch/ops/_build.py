@@ -9,9 +9,10 @@ import every module of the port on a machine with no ``nvcc``.
 Each wrapper counts its launches in :data:`LAUNCHES`, one per call that
 launches its kernel (a call that runs several CUDA launches, such as the
 refine head's convs and reductions, counts once), so a run can show that
-its main path went through the kernels.  Window attention counts its
-tiled kernels (windows of more than 64 tokens) apart from the other three
-families, so a path shows which of the two it took.
+its main path went through the kernels.  Window attention counts its two
+tiled families (windows of more than 64 tokens, on the tensor cores or the
+CUDA cores) apart from the other three, so a path shows which of the two
+window sizes it took.
 """
 
 from __future__ import annotations
@@ -66,6 +67,11 @@ _SIGNATURES = {
     "ssa_refine_head_bwd": (19, 4),
     "ssa_gelu_d2s4_fwd": (2, 4),
     "ssa_gelu_d2s4_bwd": (3, 4),
+}
+
+# C queries: (name, number of int args); each returns a long long.
+_QUERIES = {
+    "ssa_window_attention_bwd_scratch": 9,
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -143,6 +149,10 @@ def library() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    for name, n_int in _QUERIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int] * n_int
+        fn.restype = ctypes.c_longlong
     return lib
 
 
@@ -177,6 +187,12 @@ def dtype_code(dtype: torch.dtype) -> int:
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"kernels take float32 or bfloat16, got {dtype}")
     return _DTYPE_CODE[dtype]
+
+
+def query(fn: str, ints) -> int:
+    """Call one C query (no launch): what the kernels' host code computes
+    from these ints."""
+    return int(getattr(library(), fn)(*[int(i) for i in ints]))
 
 
 def launch(counter: str, fn: str, tensors, ints, dtype: torch.dtype) -> None:

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``ops/fused_window_attention.py``: the
 qkv/proj projections, pad, roll and crop stay outside the kernel (plain
 PyTorch, as the JAX package leaves them to XLA); the kernels
-(``csrc/fused_window_attention.cu``) take the rolled, padded qkv
+(``csrc/fused_window_attention.cu``, and ``csrc/fused_window_attention_tiled.cu``
+for windows of more than 64 tokens) take the rolled, padded qkv
 ``(B,Hp,Wp,3C)``.  The forward writes the context ``(B,Hp,Wp,C)`` in the
 same layout; the backward recomputes the probabilities from the saved
 qkv and writes ``dqkv`` ``(B,Hp,Wp,3C)`` and the float32 bias gradient
@@ -11,12 +12,13 @@ qkv and writes ``dqkv`` ``(B,Hp,Wp,3C)`` and the float32 bias gradient
 kernels cover every grid, so the TPU's width chunking
 (``_layout``/``pad_chunk``) and stage caps are gone, and every window size
 (the TPU kernel's up to 512 tokens, and more): windows of more than 64
-tokens take the tiled kernels.  Which of the four kernel families a call
+tokens take the tiled kernels.  Which of the five kernel families a call
 takes (:func:`kernel_route`), how many blocks walk each head's windows for
-the ``mma.sync`` kernels of the main path (:func:`launch_plan`, from the
-card's SM count), and the backward's windows per block and scratch
-(:func:`bwd_plan`) are decided here, from the static shape, before the
-launch.
+the ``mma.sync`` kernels (:func:`launch_plan`, from the card's SM count),
+and the backward's windows per block, key chunks and scratch
+(:func:`fwd_plan`, :func:`bwd_plan`) are decided here, from the static
+shape, before the launch; the backward's scratch is held against what the
+kernels' host code lays out for that plan before every launch.
 
 :func:`window_attention_reference` and
 :func:`window_attention_bwd_reference` are the kernels' plain PyTorch
@@ -52,9 +54,11 @@ from .window_attention import (
 # bfloat16 head widths that are not a multiple of 16), the ``wmma`` kernels
 # (bfloat16, other multiples of 16), or the ``mma.sync`` kernels of the main
 # path (bfloat16, head width 16, 32 or 64).  Larger windows (window 12 and
-# up), float32 and bfloat16 at head widths up to 128: the tiled kernels.
-ROUTE_CORE, ROUTE_WMMA, ROUTE_MMA, ROUTE_TILED = 0, 1, 2, 3
-ROUTE_NAMES = ("CUDA-core", "wmma", "mma.sync", "tiled")
+# up): the tiled ``mma.sync`` kernels (bfloat16, head widths a multiple of 16
+# up to 128: the deployment type), else the tiled kernels on the CUDA cores
+# (float32, the parity type, and the other bfloat16 widths up to 128).
+ROUTE_CORE, ROUTE_WMMA, ROUTE_MMA, ROUTE_TILED, ROUTE_TILED_MMA = 0, 1, 2, 3, 4
+ROUTE_NAMES = ("CUDA-core", "wmma", "mma.sync", "tiled", "tiled mma.sync")
 _MMA_HEAD_DIMS = (16, 32, 64)
 _BAND_TOKENS = 64  # the largest window of the first three families
 _TILED_MAX_HEAD_DIM = 128
@@ -75,6 +79,21 @@ _BWD_MAX_GROUP = 32
 # 103 KB at window 12 and head width 32, so fewer, longer blocks keep it at
 # ~50 MB on a 132-SM card at stage 0 of Swin-B 512^2 b8.
 TILED_BWD_BLOCKS_PER_SM = 4
+# The tiled ``mma.sync`` kernels (``csrc/fused_window_attention_tiled.cu``).
+# Windows of up to TILED_MMA_CHUNK tokens (window 12: 144), and in the
+# backward head widths up to 32, take the one-block kernels: one block an SM
+# walking a run of windows of one head (:func:`launch_plan` at one block an
+# SM), a band's whole score row in registers.  Larger windows (or head
+# widths) take the split kernels: 64-token chunks (TILED_MMA_SPLIT), the
+# backward's keys split over blocks of a group of windows.  The C side
+# (``tm_one_block``) makes the same choice and lays out the scratch by it;
+# :func:`window_attention_bwd` refuses a launch whose scratch is smaller than
+# that, so no disagreement can write past the scratch.
+TILED_MMA_CHUNK = 144
+TILED_MMA_BWD_MAX_HEAD_DIM = 32
+TILED_MMA_SPLIT = 64
+TILED_MMA_BLOCKS_PER_SM = 1
+TILED_MMA_GROUP_BLOCKS_PER_SM = 4
 
 
 def _partition(t: torch.Tensor, wh: int, ww: int, heads: int, parts: int) -> torch.Tensor:
@@ -152,14 +171,15 @@ def kernel_route(dtype: torch.dtype, hd: int, n: int, shift_inside: bool = True)
     from the static shape before any launch.  ``shift_inside``: the shift is
     smaller than the window on both axes (the ``mma.sync`` kernels build the
     shift mask from that).  Windows of more than 64 tokens take the tiled
-    kernels, whatever the shift."""
+    kernels, whatever the shift: on the tensor cores in bfloat16 at head
+    widths that are a multiple of 16, else on the CUDA cores."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"window attention kernel: float32 or bfloat16, got {dtype}")
     if hd < 1 or n < 1 or (n > _BAND_TOKENS and hd > _TILED_MAX_HEAD_DIM):
         raise ValueError(f"window attention kernel: no kernel takes head width {hd} "
                          f"with {n} tokens per window")
     if n > _BAND_TOKENS:
-        return ROUTE_TILED
+        return ROUTE_TILED_MMA if dtype == torch.bfloat16 and hd % 16 == 0 else ROUTE_TILED
     if dtype == torch.float32 or hd % 16:
         return ROUTE_CORE
     if hd in _MMA_HEAD_DIMS and shift_inside:
@@ -202,20 +222,66 @@ def tiled_bwd_group(n_windows: int, heads: int, sm_count: int) -> int:
     return max(1, -(-n_windows * heads // (sm_count * TILED_BWD_BLOCKS_PER_SM)))
 
 
+def tiled_mma_one_block(n: int, hd: int, backward: bool) -> bool:
+    """Whether a tiled ``mma.sync`` launch takes the one-block kernels (a
+    window's every row and key on one block) or the split ones."""
+    return n <= TILED_MMA_CHUNK and (not backward or hd <= TILED_MMA_BWD_MAX_HEAD_DIM)
+
+
+def tiled_mma_group(total: int, heads: int, n: int, sm_count: int) -> int:
+    """Windows each block group of the split tiled ``mma.sync`` backward
+    walks (its bias-gradient partial covers all of them): the (window, key
+    chunk, head) triples spread over ``TILED_MMA_GROUP_BLOCKS_PER_SM`` blocks
+    an SM."""
+    if total < 1 or heads < 1 or n < 1 or sm_count < 1:
+        raise ValueError("tiled_mma_group: every count must be at least 1")
+    chunks = -(-n // TILED_MMA_SPLIT)
+    return max(1, -(-total * heads * chunks // (sm_count * TILED_MMA_GROUP_BLOCKS_PER_SM)))
+
+
+def fwd_plan(route: int, batch: int, n_windows: int, heads: int, n: int,
+             sm_count: int, hd: int = 0) -> int:
+    """The plan argument of a forward launch: blocks per head for the
+    ``mma.sync`` kernels and the one-block tiled ``mma.sync`` kernel, else 1
+    (those kernels take one block a window or chunk, and no plan)."""
+    if route == ROUTE_MMA:
+        return launch_plan(batch, n_windows, heads, sm_count, FWD_BLOCKS_PER_SM)
+    if route == ROUTE_TILED_MMA and tiled_mma_one_block(n, hd, False):
+        return launch_plan(batch, n_windows, heads, sm_count, TILED_MMA_BLOCKS_PER_SM)
+    return 1
+
+
 def bwd_plan(route: int, batch: int, n_windows: int, heads: int, n: int,
-             sm_count: int, hd: int = 0) -> Tuple[int, Tuple[int, int, int, int]]:
+             sm_count: int, hd: int = 0) -> Tuple[int, Tuple[int, ...]]:
     """``(plan, scratch shape)`` of a backward launch: the plan argument of
-    the C entry point (blocks per head for the ``mma.sync`` kernels, windows
-    per block for the others) and the float32 scratch of per-block
-    bias-gradient partials, one ``(heads, N, columns)`` per block of a head.
-    The ``mma.sync`` kernels pad a partial's rows to their key tiles (56
-    columns up to 56 tokens, else 64) so that they write whole sectors.  The
-    tiled kernels (head width ``hd``) follow each row of a partial with the
-    block's float32 dq accumulator and the row's max, sum and rowsum(dP*P):
-    ``N + hd + 3`` columns."""
+    the C entry point (blocks per head for the ``mma.sync`` kernels and the
+    one-block tiled ``mma.sync`` kernel, windows per block or block group for
+    the others) and the float32 scratch of per-block bias-gradient partials,
+    one ``(heads, N, columns)`` per block of a head.  The ``mma.sync``
+    kernels pad a partial's rows to their key tiles (56 columns up to 56
+    tokens, else 64) so that they write whole sectors, the one-block tiled
+    ``mma.sync`` kernel to its 144 keys.  The tiled kernels on the CUDA cores
+    (head width ``hd``) follow each row of a partial with the block's float32
+    dq accumulator and the row's max, sum and rowsum(dP*P): ``N + hd + 3``
+    columns.  The split tiled ``mma.sync`` kernels take one flat scratch: the
+    groups' ``(heads, N, N)`` partials (padded to 4 floats), each row's max,
+    1/sum and rowsum(dP*P) ``(B*nW, heads, N, 4)``, and dq's float32 partial
+    of each 64-key chunk ``(chunks, B*nW*N, heads*hd)``."""
     if route == ROUTE_MMA:
         chunks = launch_plan(batch, n_windows, heads, sm_count, BWD_BLOCKS_PER_SM)
         return chunks, (chunks, heads, n, 56 if n <= 56 else 64)
+    if route == ROUTE_TILED_MMA:
+        if hd < 1:
+            raise ValueError("bwd_plan: the tiled route needs the head width")
+        total = batch * n_windows
+        if tiled_mma_one_block(n, hd, True):
+            chunks = launch_plan(batch, n_windows, heads, sm_count, TILED_MMA_BLOCKS_PER_SM)
+            return chunks, (chunks, heads, n, TILED_MMA_CHUNK)
+        group = tiled_mma_group(total, heads, n, sm_count)
+        partials = -(-total // group) * heads * n * n
+        floats = (-(-partials // 4) * 4 + total * heads * n * 4
+                  + -(-n // TILED_MMA_SPLIT) * total * n * heads * hd)
+        return group, (floats,)
     if route == ROUTE_TILED:
         if hd < 1:
             raise ValueError("bwd_plan: the tiled route needs the head width")
@@ -223,6 +289,9 @@ def bwd_plan(route: int, batch: int, n_windows: int, heads: int, n: int,
         return group, (-(-batch * n_windows // group), heads, n, n + hd + 3)
     group = bwd_group(batch * n_windows, heads)
     return group, (-(-batch * n_windows // group), heads, n, n)
+
+
+_TILED = (ROUTE_TILED, ROUTE_TILED_MMA)
 
 
 def _route(qkv: torch.Tensor, wh: int, ww: int, heads: int, sh: int, sw: int) -> int:
@@ -239,12 +308,10 @@ def _fwd(qkv, rel_bias, wh, ww, heads, sh, sw):
     b, hp, wp, c3 = qkv.shape
     _build.check_cuda(qkv, "qkv")
     _build.check_cuda(rel_bias, "rel_bias", (heads, wh * ww, wh * ww), torch.float32)
-    plan = 1
-    if route == ROUTE_MMA:
-        plan = launch_plan(b, (hp // wh) * (wp // ww), heads,
-                           _build.sm_count(qkv.device.index), FWD_BLOCKS_PER_SM)
+    plan = fwd_plan(route, b, (hp // wh) * (wp // ww), heads, wh * ww,
+                    _build.sm_count(qkv.device.index), c3 // 3 // heads)
     out = torch.empty((b, hp, wp, c3 // 3), dtype=qkv.dtype, device=qkv.device)
-    _build.launch("window_attention_tiled" if route == ROUTE_TILED else "window_attention",
+    _build.launch("window_attention_tiled" if route in _TILED else "window_attention",
                   "ssa_window_attention_fwd",
                   [qkv, rel_bias, out],
                   [b, hp, wp, c3 // 3, heads, wh, ww, sh, sw, route, plan], qkv.dtype)
@@ -254,7 +321,9 @@ def _fwd(qkv, rel_bias, wh, ww, heads, sh, sw):
 def window_attention_bwd(qkv, dctx, rel_bias, *, wh, ww, heads, sh, sw):
     """Backward wrapper: plain version on the CPU, the kernel (one count,
     two launches: the windows, then the deterministic sum of the bias
-    partials) on the card."""
+    partials; four for the split tiled ``mma.sync`` kernels: the rows'
+    statistics, the windows, the sums of the dq and bias partials) on the
+    card."""
     if qkv.device.type == "cpu":
         return window_attention_bwd_reference(qkv, dctx, rel_bias, wh=wh, ww=ww,
                                               heads=heads, sh=sh, sw=sw)
@@ -266,10 +335,15 @@ def window_attention_bwd(qkv, dctx, rel_bias, *, wh, ww, heads, sh, sw):
     _build.check_cuda(rel_bias, "rel_bias", (heads, n, n), torch.float32)
     plan, scratch = bwd_plan(route, b, (hp // wh) * (wp // ww), heads, n,
                              _build.sm_count(qkv.device.index), c3 // 3 // heads)
-    dqkv = torch.empty_like(qkv)
     part = torch.empty(scratch, dtype=torch.float32, device=qkv.device)
+    need = _build.query("ssa_window_attention_bwd_scratch",
+                        [b, hp, wp, c3 // 3, heads, wh, ww, route, plan])
+    if not 0 <= need <= part.numel():
+        raise RuntimeError(f"window attention backward: the kernels lay out {need} floats of "
+                           f"scratch for route {route} plan {plan}, {part.numel()} allocated")
+    dqkv = torch.empty_like(qkv)
     dbias = torch.empty((heads, n, n), dtype=torch.float32, device=qkv.device)
-    _build.launch("window_attention_bwd_tiled" if route == ROUTE_TILED
+    _build.launch("window_attention_bwd_tiled" if route in _TILED
                   else "window_attention_bwd", "ssa_window_attention_bwd",
                   [qkv, dctx, rel_bias, dqkv, part, dbias],
                   [b, hp, wp, c3 // 3, heads, wh, ww, sh, sw, route, plan], qkv.dtype)

@@ -23,7 +23,8 @@ on the card its tiled attention kernels (``chip_smoke.py`` phase 18).
   kernel's backward at window 12 is held in
   ``tests/test_torch_attention_bwd.py``; here it would double the JAX
   compile), with one torch thread (as those files).
-* The kernel plan names the tiled kernels at every stage.
+* The kernel plan names the tiled kernels at every stage: the tiled
+  ``mma.sync`` kernels in bfloat16, the CUDA-core ones in float32.
 """
 
 import jax
@@ -139,11 +140,14 @@ def test_window_12_train_step_matches_jax():
         assert err <= GRAD_TOL, ("/".join(k), err)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_window_12_plan_names_the_tiled_kernels(dtype):
+@pytest.mark.parametrize("dtype,family", [(torch.float32, "tiled"),
+                                          (torch.bfloat16, "tiled mma.sync")])
+def test_window_12_plan_names_the_tiled_kernels(dtype, family):
+    """bfloat16 (head width 32) takes the tiled ``mma.sync`` kernels, float32
+    the tiled kernels on the CUDA cores."""
     lines = attention_plan(MSUNet(fused_attention=True, dtype=dtype, **KNOBS))
     assert lines[:4] == [f"attention stage {i}: grid {24 >> i}x{24 >> i} c{128 << i} -> "
-                         "kernel (tiled, 144 tokens a window)" for i in range(4)]
+                         f"kernel ({family}, 144 tokens a window)" for i in range(4)]
 
 
 def test_window_12_flops_count_the_full_windows_on_unpadded_tokens():

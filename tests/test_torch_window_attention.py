@@ -13,8 +13,9 @@ order).
 
 Further, for the card's kernels, what the CPU can reach of them: the
 launch plan of the ``mma.sync`` kernels (blocks per head, the runs of
-windows) as a pure function, the routing of a (dtype, head width,
-tokens) to one of the four kernel families, ``_check_shape``, and the
+windows) and of the tiled ``mma.sync`` backward (every window and key band
+once) as pure functions, the routing of a (dtype, head width, tokens) to
+one of the five kernel families, ``_check_shape``, and the
 plain forward against the JAX package at the ragged shapes the card's
 corner-case phase uses (through the Pallas kernel in interpret mode
 where the JAX gate takes the shape, else through the composed JAX path;
@@ -163,18 +164,26 @@ ROUTES = [
     (torch.bfloat16, 48, 49, True, fwa.ROUTE_WMMA),
     (torch.bfloat16, 96, 25, True, fwa.ROUTE_WMMA),
     (torch.bfloat16, 128, 49, True, fwa.ROUTE_WMMA),
-    # windows of more than 64 tokens: the tiled kernels, whatever the shift
-    (torch.bfloat16, 32, 65, True, fwa.ROUTE_TILED),
+    # windows of more than 64 tokens, whatever the shift: the tiled mma.sync
+    # kernels in bfloat16 at head widths that are a multiple of 16, the tiled
+    # kernels on the CUDA cores in float32 and at the other widths
+    (torch.bfloat16, 32, 65, True, fwa.ROUTE_TILED_MMA),
     (torch.float32, 32, 81, True, fwa.ROUTE_TILED),
     (torch.float32, 16, 65, True, fwa.ROUTE_TILED),
-    (torch.bfloat16, 32, 144, True, fwa.ROUTE_TILED),
+    (torch.bfloat16, 32, 144, True, fwa.ROUTE_TILED_MMA),
     (torch.float32, 32, 144, True, fwa.ROUTE_TILED),
-    (torch.bfloat16, 32, 144, False, fwa.ROUTE_TILED),
-    (torch.bfloat16, 64, 484, True, fwa.ROUTE_TILED),
+    (torch.bfloat16, 32, 144, False, fwa.ROUTE_TILED_MMA),
+    (torch.bfloat16, 64, 484, True, fwa.ROUTE_TILED_MMA),
     (torch.float32, 64, 484, True, fwa.ROUTE_TILED),
-    (torch.bfloat16, 128, 576, True, fwa.ROUTE_TILED),
+    (torch.bfloat16, 128, 576, True, fwa.ROUTE_TILED_MMA),
     (torch.float32, 24, 144, True, fwa.ROUTE_TILED),
     (torch.bfloat16, 8, 4096, True, fwa.ROUTE_TILED),
+    (torch.bfloat16, 24, 144, True, fwa.ROUTE_TILED),
+    (torch.bfloat16, 8, 144, True, fwa.ROUTE_TILED),
+    (torch.float32, 128, 144, True, fwa.ROUTE_TILED),
+    (torch.bfloat16, 16, 65, True, fwa.ROUTE_TILED_MMA),
+    (torch.bfloat16, 48, 144, True, fwa.ROUTE_TILED_MMA),
+    (torch.bfloat16, 112, 81, False, fwa.ROUTE_TILED_MMA),
 ]
 
 
@@ -205,7 +214,7 @@ def test_check_shape(shape, window, heads, ok):
     qkv = torch.zeros(shape)
     if ok:
         fwa._check_shape(qkv, *window, heads)
-        want = ((fwa.ROUTE_TILED,) if window[0] * window[1] > 64
+        want = ((fwa.ROUTE_TILED_MMA,) if window[0] * window[1] > 64
                 else (fwa.ROUTE_MMA, fwa.ROUTE_WMMA, fwa.ROUTE_CORE))
         assert fwa._route(qkv.bfloat16(), *window, heads, 3, 3) in want
     else:
@@ -219,7 +228,96 @@ def test_route_of_a_shift_as_wide_as_the_window():
     assert fwa._route(qkv, 7, 7, 2, 7, 3) == fwa.ROUTE_WMMA
     assert fwa._route(qkv.float(), 7, 7, 2, 3, 3) == fwa.ROUTE_CORE
     qkv = torch.zeros((1, 24, 24, 3 * 64), dtype=torch.bfloat16)
-    assert fwa._route(qkv, 12, 12, 2, 12, 6) == fwa.ROUTE_TILED
+    assert fwa._route(qkv, 12, 12, 2, 12, 6) == fwa.ROUTE_TILED_MMA
+    assert fwa._route(qkv.float(), 12, 12, 2, 12, 6) == fwa.ROUTE_TILED
+
+
+# (batch, windows per image, heads, tokens, head width) of the tiled
+# mma.sync backward: the window-12 stage shapes of the Swin-B 512^2 batch-8
+# paths, then the shapes of chip_smoke.py's W12_CORNERS that take the route
+TILED_MMA_PLANS = [(8, 121, 4, 144, 32), (8, 36, 8, 144, 32), (8, 9, 16, 144, 32),
+                   (8, 4, 32, 144, 32), (2, 4, 2, 65, 32), (1, 6, 1, 144, 32),
+                   (2, 4, 6, 144, 16), (2, 4, 2, 144, 64), (1, 6, 2, 144, 128),
+                   (1, 4, 2, 144, 48), (4, 64, 4, 81, 128), (1, 4, 2, 484, 64),
+                   (1, 1, 2, 576, 128)]
+
+
+def tiled_mma_bwd_blocks(plan, batch, n_win, n, hd):
+    """The work of each backward block of one head, ``(first window, end
+    window, first key, end key)`` in block order, as
+    ``csrc/fused_window_attention_tiled.cu`` indexes its grids: the one-block
+    kernel's block ``c`` (``tm_run``) takes the run ``chunk_range`` gives it
+    and every key; the split kernel's block ``g * chunks + k``
+    (``window_attention_bwd_ts_kernel``) takes the ``plan`` windows of group
+    ``g`` and the keys of 64-token chunk ``k``.  A copy of the kernels'
+    indexing: the card's comparisons show that the kernels follow it."""
+    total = batch * n_win
+    if fwa.tiled_mma_one_block(n, hd, True):
+        return [(*fwa.chunk_range(c, plan, total), 0, n) for c in range(plan)]
+    chunks = -(-n // fwa.TILED_MMA_SPLIT)
+    return [(g * plan, min(total, (g + 1) * plan), k * fwa.TILED_MMA_SPLIT,
+             min(n, (k + 1) * fwa.TILED_MMA_SPLIT))
+            for g in range(-(-total // plan)) for k in range(chunks)]
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("batch,n_win,heads,n,hd", TILED_MMA_PLANS)
+def test_tiled_mma_backward_plan_covers_every_window_and_key_band_once(
+        batch, n_win, heads, n, hd, sms):
+    """Every (window, 16-key band) pair of a head is the work of exactly one
+    block of the kernels' indexing at the plan :func:`fwa.bwd_plan` gives;
+    the one-block kernel's grid is one wave, the split kernel's scratch
+    holds its partials, statistics and dq partials."""
+    plan, scratch = fwa.bwd_plan(fwa.ROUTE_TILED_MMA, batch, n_win, heads, n, sms, hd)
+    blocks = tiled_mma_bwd_blocks(plan, batch, n_win, n, hd)
+    total, bands = batch * n_win, -(-n // 16)
+    seen = np.zeros((total, bands), dtype=np.int64)
+    for w0, w1, k0, k1 in blocks:
+        assert 0 <= w0 < w1 <= total and 0 <= k0 < k1 <= n and k0 % 16 == 0
+        seen[w0:w1, k0 // 16:-(-k1 // 16)] += 1
+    assert (seen == 1).all()
+    if fwa.tiled_mma_one_block(n, hd, True):
+        assert len(blocks) == plan and plan * heads <= max(heads, sms)
+        assert scratch == (plan, heads, n, fwa.TILED_MMA_CHUNK)
+    else:
+        chunks = -(-n // fwa.TILED_MMA_SPLIT)
+        groups = -(-total // plan)
+        assert len(blocks) == groups * chunks
+        assert scratch[0] >= groups * heads * n * n + total * heads * n * 4 \
+            + chunks * total * n * heads * hd
+
+
+def test_tiled_mma_backward_scratch_at_window_12_stage_0():
+    """Swin-B 512^2 b8 window 12, stage 0 on a 132-SM card: 33 blocks a head
+    walk the 968 windows, each with a 144 x 144 float32 partial a head."""
+    assert fwa.bwd_plan(fwa.ROUTE_TILED_MMA, 8, 121, 4, 144, 132, 32) == \
+        (33, (33, 4, 144, 144))
+    assert [fwa.tiled_mma_one_block(n, hd, bwd) for n, hd, bwd in [
+        (144, 32, True), (144, 64, True), (144, 64, False), (144, 128, False),
+        (145, 16, False), (65, 16, True)]] \
+        == [True, False, True, True, False, True]
+
+
+# (route, batch, windows per image, heads, tokens, head width, SMs, plan):
+# blocks per head for the mma.sync kernels and the one-block tiled mma.sync
+# forward (one wave), 1 for the kernels that take no plan
+FWD_PLANS = [
+    (fwa.ROUTE_MMA, 8, 324, 4, 49, 32, 132, 132),
+    (fwa.ROUTE_MMA, 1, 1, 32, 49, 64, 132, 1),
+    (fwa.ROUTE_TILED_MMA, 8, 121, 4, 144, 32, 132, 33),
+    (fwa.ROUTE_TILED_MMA, 8, 4, 32, 144, 32, 132, 4),
+    (fwa.ROUTE_TILED_MMA, 2, 4, 2, 144, 64, 132, 8),
+    (fwa.ROUTE_TILED_MMA, 1, 6, 2, 144, 128, 132, 6),
+    (fwa.ROUTE_TILED_MMA, 1, 4, 2, 484, 64, 132, 1),
+    (fwa.ROUTE_TILED, 8, 121, 4, 144, 32, 132, 1),
+    (fwa.ROUTE_WMMA, 8, 324, 4, 49, 48, 132, 1),
+    (fwa.ROUTE_CORE, 8, 324, 4, 49, 24, 132, 1),
+]
+
+
+@pytest.mark.parametrize("route,batch,n_win,heads,n,hd,sms,want", FWD_PLANS)
+def test_forward_plan(route, batch, n_win, heads, n, hd, sms, want):
+    assert fwa.fwd_plan(route, batch, n_win, heads, n, sms, hd) == want
 
 
 # (B, H, W, C, heads, window, shift): small versions of the shapes of the
