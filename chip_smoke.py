@@ -2008,7 +2008,7 @@ def one_rank_nccl(train_args, build, rng, run_dir: str, card: str, want: dict) -
               f"events, 10 steps), MFU {step_mfu(cfg, B, ms, n_params):.4f} of "
               f"{BF16_FLOP_PER_S / 1e12:g} TFLOP/s bf16, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
-        sections = section_times(lambda: step(state, images, labels, 1e-4), model)
+        sections = section_times(lambda: step(state, images, labels, 1e-4))
         top = sorted(((v, k) for k, v in sections.items() if k != "total"), reverse=True)
         print(f"DDP step device time by section (profiler, one step): "
               f"{sections['total']:.2f} ms; " +

@@ -59,6 +59,7 @@ from ..ops.window_attention import (
     shifted_window_attention,
 )
 from ..parallel import spatial
+from ..utils.profiling import span
 
 LN_EPS = 1e-5
 _GENERATOR: list = [None]
@@ -154,11 +155,12 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                dtype: torch.dtype) -> torch.Tensor:
     """LayerNorm with the torch epsilon and float32 fast-variance stats
     (``mean(x^2) - mean^2`` clamped at 0), output in ``dtype``."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
-    y = (xf - mean) * torch.rsqrt(var + LN_EPS) * weight + bias
-    return y.to(dtype)
+    with span("ssa.norm"):
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+        y = (xf - mean) * torch.rsqrt(var + LN_EPS) * weight + bias
+        return y.to(dtype)
 
 
 def linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:

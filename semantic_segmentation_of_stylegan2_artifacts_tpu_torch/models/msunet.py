@@ -52,6 +52,7 @@ from ..core.device import compute_dtype, resolve_device
 from ..ops import fused_window_attention
 from ..parallel import spatial
 from ..parallel.mesh import world_size_for
+from ..utils.profiling import span
 from .layers import (
     BasicLayer,
     BasicLayerUp,
@@ -175,37 +176,56 @@ class MSUNetSys(nn.Module):
     def _reduce(self, i: int, x: torch.Tensor) -> torch.Tensor:
         return linear(x, self.concat_back_dim[i], self.dtype)
 
+    # each section runs inside a ``ssa.model.<section>`` span
+    # (``utils/profiling.py::span``); a stage's skip reduction and the
+    # closing norms belong to the stage's section
     def forward_features(self, x: torch.Tensor):
-        x = self.patch_embed(x)
-        rows = () if self.space is None else self.space.row_part(x)
-        x = dropout(x, self.drop_rate, self.training, rows)  # pos_drop
+        with span("ssa.model.embed"):
+            x = self.patch_embed(x)
+            rows = () if self.space is None else self.space.row_part(x)
+            x = dropout(x, self.drop_rate, self.training, rows)  # pos_drop
         skips: List[torch.Tensor] = []
+        last = len(self.layers) - 1
         for i_layer, layer in enumerate(self.layers):
             if i_layer == 1:  # cent decoder 2 rewrites skip 0 (reference :785-795)
                 x2 = x
                 for i, stage in enumerate(self.layers_cent2):
-                    if i:
-                        x2 = self._reduce(i + 2, torch.cat([x2, skips[i_layer - i]], -1))
-                        skips[i_layer - i] = x2
-                    x2 = stage(x2)
+                    with span(f"ssa.model.cent2.{i}"):
+                        if i:
+                            x2 = self._reduce(i + 2, torch.cat([x2, skips[i_layer - i]], -1))
+                            skips[i_layer - i] = x2
+                        x2 = stage(x2)
             if i_layer == 2:  # cent decoder 1 rewrites skips 1 and 0 (:797-807)
                 x1 = x
                 for i, stage in enumerate(self.layers_cent1):
-                    if i:
-                        x1 = self._reduce(i + 1, torch.cat([x1, skips[i_layer - i]], -1))
-                        skips[i_layer - i] = x1
-                    x1 = stage(x1)
+                    with span(f"ssa.model.cent1.{i}"):
+                        if i:
+                            x1 = self._reduce(i + 1, torch.cat([x1, skips[i_layer - i]], -1))
+                            skips[i_layer - i] = x1
+                        x1 = stage(x1)
             skips.append(x)
-            x = layer(x)
-        return self.norm(x), skips
+            with span(f"ssa.model.encoder.{i_layer}"):
+                x = layer(x)
+                if i_layer == last:
+                    x = self.norm(x)
+        return x, skips
 
     def forward_up_features(self, x: torch.Tensor, skips) -> torch.Tensor:
         nl = len(self.depths)
         for inx, layer_up in enumerate(self.layers_up):
-            if inx:
-                x = self._reduce(inx, torch.cat([x, skips[nl - 1 - inx]], -1))
-            x = layer_up(x)
-        return self.norm_up(x)
+            with span(f"ssa.model.decoder.{inx}"):
+                if inx:
+                    x = self._reduce(inx, torch.cat([x, skips[nl - 1 - inx]], -1))
+                x = layer_up(x)
+                if inx == nl - 1:
+                    x = self.norm_up(x)
+        return x
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        with span("ssa.model.head"):
+            x = self.up(x)
+            return torch.nn.functional.linear(
+                x.to(self.dtype), self.output.weight[:, :, 0, 0].to(self.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, H, W, 3) -> (B, H, W, num_classes)`` logits."""
@@ -216,9 +236,7 @@ class MSUNetSys(nn.Module):
         if self.spatial_axis:
             return self._forward_slab(x)
         x, skips = self.forward_features(x)
-        x = self.up(self.forward_up_features(x, skips))
-        return torch.nn.functional.linear(
-            x.to(self.dtype), self.output.weight[:, :, 0, 0].to(self.dtype))
+        return self._head(self.forward_up_features(x, skips))
 
     def _forward_slab(self, x: torch.Tensor) -> torch.Tensor:
         """Spatial sharding: this rank's pixel rows through the network on
@@ -229,9 +247,7 @@ class MSUNetSys(nn.Module):
         pixels = self.space.slabs(self.img_size // self.patch_size).scaled(self.patch_size)
         lo, hi = pixels.bounds[self.space.rank]
         x, skips = self.forward_features(x[:, lo:hi])
-        x = self.up(self.forward_up_features(x, skips))
-        x = torch.nn.functional.linear(x.to(self.dtype),
-                                       self.output.weight[:, :, 0, 0].to(self.dtype))
+        x = self._head(self.forward_up_features(x, skips))
         return spatial.gather_rows(x, self.space, pixels)
 
 

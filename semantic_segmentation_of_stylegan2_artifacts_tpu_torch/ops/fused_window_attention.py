@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import upload
 from . import _build
 from .window_attention import (
     effective_shift,
@@ -117,8 +118,7 @@ def _probs(q, k, rel_bias, hp, wp, wh, ww, sh, sw):
     s = torch.matmul(q, k.transpose(-1, -2)) * (q.shape[-1] ** -0.5)
     s = s + rel_bias.float()[None, None]
     if sh or sw:
-        mask = torch.as_tensor(shifted_window_mask(hp, wp, wh, ww, sh, sw),
-                               device=q.device)
+        mask = upload(shifted_window_mask(hp, wp, wh, ww, sh, sw), q.device)
         s = s + mask[None, :, None]
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span, upload
+
 # ``(dim, start, total)`` for each dimension on which a tensor is one rank's part
 Parts = Tuple[Tuple[int, int, int], ...]
 
@@ -72,8 +74,7 @@ def gather_bias(bias_table: torch.Tensor, wh: int, ww: int,
                 heads: int) -> torch.Tensor:
     """Relative-position bias ``(heads, N, N)`` from the table."""
     n = wh * ww
-    idx = torch.as_tensor(relative_position_index(wh, ww).reshape(-1),
-                          device=bias_table.device)
+    idx = upload(relative_position_index(wh, ww).reshape(-1), bias_table.device)
     return bias_table[idx].reshape(n, n, heads).permute(2, 0, 1)
 
 
@@ -92,20 +93,27 @@ def window_reverse(x: torch.Tensor, h: int, w: int, wh: int, ww: int) -> torch.T
 
 
 def pad_and_roll(x: torch.Tensor, hp: int, wp: int, sh: int, sw: int) -> torch.Tensor:
-    """Zero-pad ``(B,H,W,C)`` bottom/right to ``(Hp,Wp)``, roll by -shift."""
+    """Zero-pad ``(B,H,W,C)`` bottom/right to ``(Hp,Wp)``, roll by -shift
+    (inside an ``ssa.roll`` span when there is either)."""
     h, w = x.shape[1], x.shape[2]
-    if hp != h or wp != w:
-        x = F.pad(x, (0, 0, 0, wp - w, 0, hp - h))
-    if sh or sw:
-        x = torch.roll(x, shifts=(-sh, -sw), dims=(1, 2))
-    return x
+    if hp == h and wp == w and not (sh or sw):
+        return x
+    with span("ssa.roll"):
+        if hp != h or wp != w:
+            x = F.pad(x, (0, 0, 0, wp - w, 0, hp - h))
+        if sh or sw:
+            x = torch.roll(x, shifts=(-sh, -sw), dims=(1, 2))
+        return x
 
 
 def unroll_and_crop(x: torch.Tensor, h: int, w: int, sh: int, sw: int) -> torch.Tensor:
     """Inverse of :func:`pad_and_roll`."""
-    if sh or sw:
-        x = torch.roll(x, shifts=(sh, sw), dims=(1, 2))
-    return x[:, :h, :w, :]
+    if x.shape[1] == h and x.shape[2] == w and not (sh or sw):
+        return x
+    with span("ssa.roll"):
+        if sh or sw:
+            x = torch.roll(x, shifts=(sh, sw), dims=(1, 2))
+        return x[:, :h, :w, :]
 
 
 def keep_mask(shape, keep: float, generator: Optional[torch.Generator],
@@ -227,8 +235,7 @@ def shifted_window_attention(
     hp, wp, sh, sw = effective_shift(h, w, window_size, shift_size)
     mask = None
     if sh or sw:
-        mask = torch.as_tensor(shifted_window_mask(hp, wp, wh, ww, sh, sw),
-                               device=x.device)
+        mask = upload(shifted_window_mask(hp, wp, wh, ww, sh, sw), x.device)
     out = attend_windows(
         window_partition(pad_and_roll(x, hp, wp, sh, sw), wh, ww), qkv_weight, qkv_bias,
         proj_weight, proj_bias, bias_table, window_size=window_size, num_heads=num_heads,

@@ -38,6 +38,7 @@ import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -50,6 +51,7 @@ from ..ops.window_attention import (
     window_partition,
     window_reverse,
 )
+from ..utils.profiling import upload
 
 Bounds = Tuple[Tuple[int, int], ...]
 
@@ -115,7 +117,7 @@ def _all_to_all(send: torch.Tensor, out_counts, in_counts, group) -> torch.Tenso
 
 
 def _index(rows, device) -> torch.Tensor:
-    return torch.tensor(rows, dtype=torch.long, device=device)
+    return upload(np.asarray(rows, dtype=np.int64), device)
 
 
 def pack(x: torch.Tensor, plan: Plan) -> torch.Tensor:
@@ -266,8 +268,7 @@ def window_attention(space: SpaceShard, x: torch.Tensor, qkv_weight, qkv_bias, p
     nwx = wp // ww
     mask = None
     if sh or sw:
-        mask = torch.as_tensor(shifted_window_mask(hp, wp, wh, ww, sh, sw)[a * nwx:b * nwx],
-                               device=x.device)
+        mask = upload(shifted_window_mask(hp, wp, wh, ww, sh, sw)[a * nwx:b * nwx], x.device)
     out = attend_windows(
         window_partition(xr, wh, ww), qkv_weight, qkv_bias, proj_weight, proj_bias,
         bias_table, window_size=window_size, num_heads=num_heads, mask=mask,

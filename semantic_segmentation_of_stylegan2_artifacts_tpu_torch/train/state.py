@@ -39,6 +39,7 @@ from ..losses.multiclass import (
     dynamic_loss_multiclass_per_sample,
 )
 from ..models.layers import noise_generator
+from ..utils.profiling import span, upload
 from .optim import build_optimizer, set_learning_rate
 
 
@@ -96,7 +97,7 @@ def encode_labels(label_u8: torch.Tensor, num_classes: int) -> torch.Tensor:
 
 def _as_tensor(a, dev: torch.device) -> torch.Tensor:
     if not torch.is_tensor(a):
-        a = torch.from_numpy(np.require(a, requirements=["C", "W"]))
+        return upload(a, dev, non_blocking=True)
     return a.to(dev, non_blocking=True)
 
 
@@ -120,10 +121,15 @@ def make_train_step(model: torch.nn.Module, loss_alpha: float, loss_beta: float,
     acc = int(accumulation_steps)
 
     def step(state: TrainState, image_u8, label_u8, lr) -> torch.Tensor:
+        with span("ssa.step"):
+            return _step(state, image_u8, label_u8, lr)
+
+    def _step(state: TrainState, image_u8, label_u8, lr) -> torch.Tensor:
         dev = next(model.parameters()).device
         model.train()
-        images = normalize_images(_as_tensor(image_u8, dev), model.dtype)
-        labels = encode_labels(_as_tensor(label_u8, dev), num_classes)
+        with span("ssa.step.feed"):
+            images = normalize_images(_as_tensor(image_u8, dev), model.dtype)
+            labels = encode_labels(_as_tensor(label_u8, dev), num_classes)
         b = images.shape[0]
         if b % acc:
             raise ValueError(f"batch {b} not divisible by accumulation_steps {acc}")
@@ -139,22 +145,25 @@ def make_train_step(model: torch.nn.Module, loss_alpha: float, loss_beta: float,
             with sync:
                 state.generator.manual_seed(
                     _noise_seed(state.seed, state.step, i, state.rank))
-                with noise_generator(state.generator):
+                with span("ssa.step.forward"), noise_generator(state.generator):
                     logits = net(images[i * mb:(i + 1) * mb])
-                loss_i = loss_impl(logits, labels[i * mb:(i + 1) * mb], loss_alpha,
-                                   loss_beta, loss_mix)
-                (loss_i / acc).backward()
+                with span("ssa.step.loss"):
+                    loss_i = loss_impl(logits, labels[i * mb:(i + 1) * mb], loss_alpha,
+                                       loss_beta, loss_mix)
+                with span("ssa.step.backward"):
+                    (loss_i / acc).backward()
             loss = loss + loss_i.detach()
         # trainable parameters the loss does not reach (the last stage of
         # each cent decoder, whose output the reference drops) get zero
         # gradients, so AdamW still decays them, as optax does; a frozen
         # parameter (requires_grad False) keeps none: no update, no decay
-        for p in model.parameters():
-            if p.grad is None and p.requires_grad:
-                p.grad = torch.zeros_like(p)
+        with span("ssa.step.grad_fill"):
+            for p in model.parameters():
+                if p.grad is None and p.requires_grad:
+                    p.grad = torch.zeros_like(p)
         if state.mesh is not None:
             state.mesh.reduce_gradients(model)
-        state.optimizer.step()
+        state.optimizer.step()  # inside PyTorch's own ``Optimizer.step#`` range
         state.step += 1
         if state.world > 1:
             dist.all_reduce(loss, group=None if state.mesh is None else state.mesh.data_group)
@@ -199,9 +208,13 @@ def make_predict_step(model: torch.nn.Module, num_classes: int = 1,
 
     @torch.inference_mode()
     def step(image_u8) -> torch.Tensor:
-        logits = model(normalize_images(_as_tensor(image_u8, dev), dtype))
-        if num_classes <= 1:
-            return torch.sigmoid(logits[..., 0].float())
-        return torch.sigmoid(logits.float())
+        with span("ssa.predict"):
+            with span("ssa.predict.feed"):
+                images = normalize_images(_as_tensor(image_u8, dev), dtype)
+            with span("ssa.predict.forward"):
+                logits = model(images)
+            if num_classes <= 1:
+                return torch.sigmoid(logits[..., 0].float())
+            return torch.sigmoid(logits.float())
 
     return step

@@ -1,15 +1,21 @@
 """Timing and tracing (counterpart of the JAX package's
 ``utils/profiling.py``).
 
+* :func:`span`: the port's own profiler ranges (``ssa.*``), opened only
+  while a profiler records the host's operations; every range the port
+  opens goes through it.  The port opens them around a step's phases
+  (``train/state.py``), the model's sections (``models/msunet.py``), every
+  LayerNorm, the shift's pad and rolls, and every copy from pageable host
+  memory inside a step (:func:`upload`).
 * :class:`StepTimer`: per-step wall clock with warm-up steps discarded and
   an images/s summary (on the card, synchronise before ``stop``, e.g. by
   reading the loss).
 * :func:`trace`: a ``torch.profiler`` context over the CPU and, when there
   is one, the card, writing a Chrome trace into ``log_dir``.
 * :func:`section_times`: a per-section time breakdown of one call from
-  one trace: the forward of each top-level submodule of a model (its
-  kernels included) and the rest of the call (the backward, the optimizer,
-  the host's glue).  It takes the place of the JAX package's
+  one trace, read off the model's ``ssa.model.<section>`` spans (their
+  kernels included), and the rest of the call (the backward, the
+  optimizer, the host's glue).  It takes the place of the JAX package's
   ``tools/perf_breakdown.py`` (one jitted section at a time, timed by a
   host sync), ``tools/hlo_breakdown.py`` and ``utils/hlo_analysis.py``,
   which read XLA's compiled programs and have no other counterpart here.
@@ -21,11 +27,61 @@
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.autograd.profiler import record_function
+
+# -- the port's spans -------------------------------------------------------
+
+_OFF = contextlib.nullcontext()
+# whether the profiler that runs records the host's operations: PyTorch
+# tells Python only that one runs (``_is_profiler_enabled``), so the start
+# of every trace notes its activities; a profiler of the device alone (the
+# benchmark's device-only stretch) opens no range
+_HOST = [False]
+
+
+def _noting_activities(start):
+    @functools.wraps(start)
+    def _start_trace(self):
+        from torch.profiler import ProfilerActivity
+
+        _HOST[0] = ProfilerActivity.CPU in getattr(self, "kineto_activities", ())
+        return start(self)
+
+    _start_trace.notes_activities = True
+    return _start_trace
+
+
+if not getattr(_autograd_profiler.profile._start_trace, "notes_activities", False):
+    _autograd_profiler.profile._start_trace = _noting_activities(
+        _autograd_profiler.profile._start_trace)
+
+
+def host_traced() -> bool:
+    """Whether a profiler records the host's operations now."""
+    return _autograd_profiler._is_profiler_enabled and _HOST[0]
+
+
+def span(name: str):
+    """A profiler range ``name`` (``record_function``, a Kineto host range
+    on the device operations' clock) while a profiler records the host's
+    operations; otherwise one shared no-op context, at the cost of a test."""
+    return record_function(name) if host_traced() else _OFF
+
+
+def upload(a: np.ndarray, device, non_blocking: bool = False) -> torch.Tensor:
+    """``a`` on ``device``, inside an ``ssa.upload`` span: on the card a copy
+    from pageable host memory, which waits for the stream to drain."""
+    with span("ssa.upload"):
+        return torch.from_numpy(np.require(a, requirements=["C", "W"])).to(
+            device, non_blocking=non_blocking)
 
 
 class StepTimer:
@@ -108,62 +164,41 @@ def _event_ms(ev, on_device: bool) -> float:
     return (ev.device_time_total if on_device else ev.cpu_time_total) / 1e3
 
 
-def section_times(fn: Callable[[], object], model: torch.nn.Module,
+SECTION = "ssa.model."
+
+
+def section_times(fn: Callable[[], object],
                   sections: Optional[List[str]] = None) -> Dict[str, float]:
     """ms of each section of one ``fn()`` call, from one profile: the
-    forward of each named submodule in ``sections`` (default: the direct
-    children of ``model``, or of its ``ms_unet``, with a module list's
-    entries in its place), then ``"other"`` for the rest of the call (the
-    backward, the optimizer) and ``"total"``.  Device time (every kernel
-    of the call) when there is a card, else host time."""
+    model's ``ssa.model.<section>`` spans (``embed``, ``encoder.<i>``,
+    ``cent2.<i>``, ``cent1.<i>``, ``decoder.<i>``, ``head``; only those in
+    ``sections`` when given), then ``"other"`` for the rest of the call
+    (the backward, the optimizer) and ``"total"``.  Device time (every
+    kernel of the call) when there is a card, else host time."""
     from torch.autograd import DeviceType
-    from torch.profiler import record_function
 
-    root = getattr(model, "ms_unet", model)
-    mods = dict(root.named_modules())
-    names = sections or [
-        f"{n}.{i}" if isinstance(m, torch.nn.ModuleList) else n
-        for n, m in root.named_children()
-        for i in (range(len(m)) if isinstance(m, torch.nn.ModuleList) else [0])]
-    prefix = "section:"
-    hooks = []
-    for name in names:
-        def pre(mod, args, _name=name):
-            mod._section = record_function(prefix + _name)
-            mod._section.__enter__()
-
-        def post(mod, args, out):
-            mod._section.__exit__(None, None, None)
-
-        hooks += [mods[name].register_forward_pre_hook(pre),
-                  mods[name].register_forward_hook(post)]
     on_device = torch.cuda.is_available()
-    try:
+    if on_device:
+        torch.cuda.synchronize()
+    with trace(None) as prof:
+        t0 = time.perf_counter()
+        fn()
         if on_device:
             torch.cuda.synchronize()
-        with trace(None) as prof:
-            with record_function(prefix + "total"):
-                fn()
-            if on_device:
-                torch.cuda.synchronize()
-    finally:
-        for h in hooks:
-            h.remove()
-    out = {name: 0.0 for name in names}
-    # every kernel and copy of the call, the backward's (run on autograd's
-    # own thread, outside the host's ranges) included
-    total = sum(ev.device_time_total for ev in _card_events(prof)) / 1e3 if on_device \
-        else 0.0
+        host_ms = (time.perf_counter() - t0) * 1e3
+    out = {name: 0.0 for name in sections or ()}
     for ev in prof.events():
         # a section is the host's range with its kernels summed in; the
         # card's copy of an annotation is left out, or it would count twice
-        if ev.device_type != DeviceType.CPU or not ev.name.startswith(prefix):
+        if ev.device_type != DeviceType.CPU or not ev.name.startswith(SECTION):
             continue
-        key = ev.name[len(prefix):]
-        if key == "total" and not on_device:
-            total += ev.cpu_time_total / 1e3
-        elif key in out:
-            out[key] += _event_ms(ev, on_device)
+        key = ev.name[len(SECTION):]
+        if sections is None or key in out:
+            out[key] = out.get(key, 0.0) + _event_ms(ev, on_device)
+    # every kernel and copy of the call, the backward's (run on autograd's
+    # own thread, outside the sections) included
+    total = sum(ev.device_time_total for ev in _card_events(prof)) / 1e3 if on_device \
+        else host_ms
     out["other"] = total - sum(out.values())
     out["total"] = total
     return out

@@ -102,14 +102,14 @@ def test_section_times_split_one_call():
     model = MSUNet(img_size=32, embed_dim=16, depths=(1, 1, 1, 1), num_heads=(2,) * 4,
                    window_size=4).eval()
     x = torch.rand(1, 32, 32, 3)
-    out = profiling.section_times(lambda: model(x).sum().backward(), model)
-    assert {"patch_embed", "layers.0", "layers.3", "layers_up.3", "layers_cent1.2",
-            "up", "other", "total"} <= set(out)
+    out = profiling.section_times(lambda: model(x).sum().backward())
+    assert {"embed", "encoder.0", "encoder.3", "decoder.3", "cent1.2",
+            "head", "other", "total"} <= set(out)
     assert all(v >= 0 for k, v in out.items() if k != "other")
-    assert out["layers.0"] > 0 and out["up"] > 0
+    assert out["encoder.0"] > 0 and out["head"] > 0
     assert abs(sum(v for k, v in out.items() if k != "total") - out["total"]) < 1e-6
-    got = profiling.section_times(lambda: model(x), model, sections=["up"])
-    assert set(got) == {"up", "other", "total"} and got["up"] > 0
+    got = profiling.section_times(lambda: model(x), sections=["head"])
+    assert set(got) == {"head", "other", "total"} and got["head"] > 0
 
 
 def test_ckpt_inspect_equals_jax(tmp_path):
