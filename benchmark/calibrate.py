@@ -35,11 +35,10 @@ def calibrate(workload: str, seeds, n_control: int, n_faults: int, seconds: floa
     import torch
 
     from benchmark import compare, drive, spec, traffic
-    from benchmark.reference.msunet import Arch
 
     cell = spec.load(workload)
     cell.limits = None
-    arch = Arch.from_config(cell.config)
+    arch = cell.architecture.arch(cell.config)
     for i, seed in enumerate(seeds):
         t0 = time.perf_counter()
         res = drive.run(cell, seed, seconds if cell.entry == "predict" else 0.0, False, dev,

@@ -18,6 +18,10 @@ forward's operations.  The window-attention layer is one Swin block's
 unpadded tokens) and the output projection.  The refine-head layer is the
 ``up`` module: the projection to 16 C, and the two 3x3 convs at full
 resolution that ``chip_smoke.py``'s refine-head rows count.
+
+These are the MS-UNet's counts: ``*_of`` read them off a configuration, and
+the architecture lookup (``architecture.py``) takes them for a reference
+module that brings none of its own.
 """
 
 from __future__ import annotations
@@ -75,9 +79,14 @@ def forward_flops(img_size: int, batch: int, *, patch_size: int = 4, embed_dim: 
     return fwd * batch
 
 
+def step_flops(forward: float, params: int) -> float:
+    """A train step's operations from its forward's: forward, backward
+    (twice the forward) and AdamW (10 a parameter)."""
+    return 3.0 * forward + 10.0 * params
+
+
 def train_step_flops(img_size: int, batch: int, params: int, **arch) -> float:
-    """Forward, backward (twice the forward) and AdamW (10 a parameter)."""
-    return 3.0 * forward_flops(img_size, batch, **arch) + 10.0 * params
+    return step_flops(forward_flops(img_size, batch, **arch), params)
 
 
 def least_ms(ops: float, n_bytes: float) -> float:
@@ -138,3 +147,24 @@ def arch_kwargs(config: dict) -> dict:
     return dict(img_size=int(config["DATA"]["IMG_SIZE"]), patch_size=int(swin["PATCH_SIZE"]),
                 embed_dim=int(swin["EMBED_DIM"]), depths=tuple(swin["DEPTHS"]),
                 num_heads=tuple(swin["NUM_HEADS"]))
+
+
+# -- the MS-UNet's counts by configuration (reference/msunet.py exports them) --
+
+def _window(config: dict) -> int:
+    return int(config["MODEL"]["SWIN"]["WINDOW_SIZE"])
+
+
+def forward_flops_of(config: dict, batch: int) -> float:
+    a = arch_kwargs(config)
+    return forward_flops(a["img_size"], batch, patch_size=a["patch_size"],
+                         embed_dim=a["embed_dim"], depths=a["depths"], window_size=_window(config))
+
+
+def attention_ms_of(config: dict, batch: int, train: bool) -> float:
+    return attention_ms(batch, _window(config), train, **arch_kwargs(config))
+
+
+def head_ms_of(config: dict, batch: int, train: bool) -> float:
+    a = arch_kwargs(config)
+    return refine_head_ms(batch, a["img_size"], a["patch_size"], a["embed_dim"], train)

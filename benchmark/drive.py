@@ -14,10 +14,10 @@ step.
 
 The window is ``seconds`` long on the host's clock; a traced run runs the
 same window and then profiles ``trace_steps`` steps more, with the
-benchmark's spans around the calls into the window-attention and head
-modules.  After the window, the
-program's state is freed and the reference runs on the same rows, weights
-and noise seeds.
+benchmark's spans around the calls into the modules that the cell's
+architecture names (its ``SPANS``: window attention and the head for the
+MS-UNet).  After the window, the program's state is freed and the
+reference runs on the same rows, weights and noise seeds.
 """
 
 from __future__ import annotations
@@ -38,7 +38,6 @@ import torch
 
 from . import compare, traffic, weights
 from .reference import train as ref_train
-from .reference.msunet import Arch, param_shapes
 from .spec import Cell, port_config
 
 PROFILE_PAD_S = 0.05  # host seconds before and after the traced work
@@ -79,9 +78,14 @@ class RankResult:
     reference_s: float = 0.0
     traced_step_s: float = 0.0  # a traced run's device-only stretch, a step
     breakdown: Optional[dict] = None
+    stages: Dict[str, float] = field(default_factory=dict)  # set-up: seconds from the start
     checks: Optional[Dict[str, dict]] = None
     program: Optional[dict] = None  # the program's readings for the comparison
     reference: Optional[dict] = None  # the reference's
+
+    def mark(self, stage: str, t_start: float) -> None:
+        """Note when a stage of set-up ended."""
+        self.stages[stage] = time.perf_counter() - t_start
 
 
 def _sync(dev) -> None:
@@ -100,13 +104,10 @@ def _reset_peak(dev) -> None:
 
 # -- spans ----------------------------------------------------------------
 
-SPANS = {"WindowAttention": "bench.attn", "FinalPatchExpandX4V2": "bench.head"}
-
-
 @contextlib.contextmanager
-def layer_spans(model: torch.nn.Module):
-    """Open a profiler range named by :data:`SPANS` around every forward
-    call of the window-attention and head modules."""
+def layer_spans(model: torch.nn.Module, spans: Dict[str, str]):
+    """Open a profiler range around every forward call of the modules
+    whose class ``spans`` names (class name -> range name)."""
     from torch.autograd.profiler import record_function
 
     handles = []
@@ -119,7 +120,7 @@ def layer_spans(model: torch.nn.Module):
         mod._bench_spans.pop().__exit__(None, None, None)
 
     for mod in model.modules():
-        name = SPANS.get(type(mod).__name__)
+        name = spans.get(type(mod).__name__)
         if name is not None:
             handles.append(mod.register_forward_pre_hook(
                 lambda m, a, _n=name: pre(m, a, _n)))
@@ -230,11 +231,13 @@ def _free() -> None:
         torch.cuda.empty_cache()
 
 
-def _profile(run_window: Callable[[], tuple], model, dev, steps: int, host: bool = True):
+def _profile(run_window: Callable[[], tuple], model, spans: Dict[str, str], dev, steps: int,
+             host: bool = True):
     """Run the window under the profiler; returns the window's result and
     its :class:`trace.Trace`.  ``host``: record the host's operations and the
-    layer spans too (what the layers' readings need, at a cost of host time
-    that stretches the window); else the device's operations alone."""
+    layer spans (``spans``, as :func:`layer_spans` takes them) too (what the
+    layers' readings need, at a cost of host time that stretches the window);
+    else the device's operations alone."""
     from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
 
@@ -244,8 +247,8 @@ def _profile(run_window: Callable[[], tuple], model, dev, steps: int, host: bool
     host = host or not on_card
     acts = ([ProfilerActivity.CPU] if host else []) + \
         ([ProfilerActivity.CUDA] if on_card else [])
-    spans = layer_spans(model) if host else contextlib.nullcontext()
-    with spans, profile(activities=acts) as prof:
+    ranges = layer_spans(model, spans) if host else contextlib.nullcontext()
+    with ranges, profile(activities=acts) as prof:
         # the profiler keeps only device events that fall inside its own
         # window once moved onto the host's clock: keep the work well inside
         time.sleep(PROFILE_PAD_S)
@@ -284,10 +287,11 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, dev, *, rank: int =
         if f not in FAULTS:
             raise ValueError(f"unknown fault {f!r}")
     seeds = Seeds.of(seed)
-    arch = Arch.from_config(cell.config)
+    arch = cell.architecture.arch(cell.config)
     cfg = port_config(cell.config, seeds.noise)
     t = cell.traffic
     res = RankResult(rank=rank)
+    res.mark("run_start", t_start)
     if cell.entry == "train":
         return _run_train(cell, cfg, arch, seeds, seconds, traced, dev, rank, world, t_start,
                           faults, reference, res)
@@ -299,11 +303,11 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, dev, *, rank: int =
     raise ValueError(f"unknown entry {t['entry']!r}")
 
 
-def _build_model(cfg, arch: Arch, seeds: Seeds, dev):
+def _build_model(cell: Cell, cfg, arch, seeds: Seeds, dev):
     from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.models.msunet import MSUNet
 
     model = MSUNet.from_config(cfg, device=dev)
-    w = weights.make(param_shapes(arch), seeds.weights, dev)
+    w = cell.architecture.draw(arch, seeds.weights, dev)
     weights.load_into(model, w)
     return model, w
 
@@ -317,7 +321,8 @@ def _run_train(cell, cfg, arch, seeds, seconds, traced, dev, rank, world, t_star
 
     t = cell.traffic
     batch, pool_rows = cell.batch, int(t["pool"])
-    model, w0 = _build_model(cfg, arch, seeds, dev)
+    model, w0 = _build_model(cell, cfg, arch, seeds, dev)
+    res.mark("model", t_start)
     state = create_train_state(model, cfg, device=dev)
     if world > 1 and "no_exchange" not in faults:
         from semantic_segmentation_of_stylegan2_artifacts_tpu_torch.parallel.mesh import (
@@ -336,6 +341,7 @@ def _run_train(cell, cfg, arch, seeds, seconds, traced, dev, rank, world, t_star
     if "frozen_state" in faults:
         state.optimizer.step = lambda *a, **k: None
     images, masks = traffic.make_pool(pool_rows, cell.img_size, seeds.data, dev)
+    res.mark("state_and_pool", t_start)
     lr = float(tr_cfg.BASE_LR)
 
     def step_fn(k: int) -> torch.Tensor:
@@ -371,13 +377,13 @@ def _run_train(cell, cfg, arch, seeds, seconds, traced, dev, rank, world, t_star
     n, bad, window_s, res.done = _train_loop(step_fn, n_check, dev, world, seconds, None)
     res.steps, res.images, res.window_s = n, n * batch, window_s
     if traced:
-        steps = int(t["trace_steps"])
+        steps, spans = int(t["trace_steps"]), cell.architecture.spans
         (n1, bad1, _, _), dev_tr = _profile(
-            lambda: _train_loop(step_fn, n_check + n, dev, world, None, steps), model, dev,
-            steps, host=False)
+            lambda: _train_loop(step_fn, n_check + n, dev, world, None, steps), model, spans,
+            dev, steps, host=False)
         (n2, bad2, _, _), tr = _profile(
             lambda: _train_loop(step_fn, n_check + n + n1, dev, world, None, steps), model,
-            dev, steps)
+            spans, dev, steps)
         bad += bad1 + bad2
         res.steps += n1 + n2
         names = [m["name"] for m in cell.metrics_layer]
@@ -418,14 +424,15 @@ def train_reference(cell, cfg, arch, seeds, images, masks, world, dev, fp8: bool
     for k in range(n_check):
         rows = traffic.global_rows(k, cell.batch, world, pool_rows)
         batches.append((images[rows].to(dev), masks[rows].to(dev)))
-    params = weights.make(param_shapes(arch), seeds.weights, dev)
+    ref = cell.architecture
+    params = ref.draw(arch, seeds.weights, dev)
     tr = cfg.TRAIN
     return ref_train.train_readings(
-        arch, params, batches, lr=float(tr.BASE_LR), seed=seeds.noise, ranks=world,
+        ref, arch, params, batches, lr=float(tr.BASE_LR), seed=seeds.noise, ranks=world,
         loss_abc=(float(tr.TVERSKY_LOSS_ALPHA), float(tr.TVERSKY_LOSS_BETA),
                   float(tr.LOSS_TVERSKY_BCE_MIX)),
         betas=tuple(tr.OPTIMIZER.BETAS), eps=float(tr.OPTIMIZER.EPS),
-        weight_decay=float(tr.WEIGHT_DECAY), numerics=ref_train.Numerics(fp8=fp8),
+        weight_decay=float(tr.WEIGHT_DECAY), numerics=ref.Numerics(fp8=fp8),
         rows_per_pass=int(t["reference_rows"]))
 
 
@@ -449,8 +456,9 @@ def _run_predict(cell, cfg, arch, seeds, seconds, traced, dev, t_start, faults, 
 
     t = cell.traffic
     batch, pool_rows = cell.batch, int(t["pool"])
-    model, w0 = _build_model(cfg, arch, seeds, dev)
+    model, w0 = _build_model(cell, cfg, arch, seeds, dev)
     del w0
+    res.mark("model", t_start)
     predict = make_predict_step(model, int(cfg.MODEL.NUM_CLASSES), device=dev)
     if "altered_answer" in faults:
         base = predict
@@ -460,6 +468,7 @@ def _run_predict(cell, cfg, arch, seeds, seconds, traced, dev, t_start, faults, 
             out[:, :16, :16] += 0.25
             return out
     images, _ = traffic.make_pool(pool_rows, cell.img_size, seeds.data, dev)
+    res.mark("state_and_pool", t_start)
     if pool_rows % batch:
         raise ValueError(f"pool {pool_rows} is not a multiple of the batch {batch}")
 
@@ -481,13 +490,14 @@ def _run_predict(cell, cfg, arch, seeds, seconds, traced, dev, t_start, faults, 
                                                           None, keep)
     res.steps, res.images, res.latencies, res.window_s = n, n * batch, lat, window_s
     if traced:
-        n_tr = int(t["trace_steps"])
+        n_tr, spans = int(t["trace_steps"]), cell.architecture.spans
         never = lambda k: False  # noqa: E731
         (n1, bad1, _, _, _, _), dev_tr = _profile(
-            lambda: _predict_loop(predict, batch_of, dev, None, n_tr, never), model, dev, n_tr,
-            host=False)
+            lambda: _predict_loop(predict, batch_of, dev, None, n_tr, never), model, spans, dev,
+            n_tr, host=False)
         (n2, bad2, _, _, _, _), tr = _profile(
-            lambda: _predict_loop(predict, batch_of, dev, None, n_tr, never), model, dev, n_tr)
+            lambda: _predict_loop(predict, batch_of, dev, None, n_tr, never), model, spans, dev,
+            n_tr)
         bad += bad1 + bad2
         res.steps += n1 + n2
         res.layer = _layer_metrics(cell, tr, dev_tr, sum(p.numel() for p in model.parameters()),
@@ -514,9 +524,10 @@ def _run_predict(cell, cfg, arch, seeds, seconds, traced, dev, t_start, faults, 
 
 def predict_reference(cell, arch, seeds, program: dict, dev, fp8: bool = False) -> dict:
     """The reference's maps of the batches the program kept."""
-    params = weights.make(param_shapes(arch), seeds.weights, dev)
+    ref = cell.architecture
+    params = ref.draw(arch, seeds.weights, dev)
     rows = int(cell.traffic["reference_rows"])
-    return {k: ref_train.predict_maps(arch, params, x.to(dev), ref_train.Numerics(fp8=fp8),
+    return {k: ref_train.predict_maps(ref, arch, params, x.to(dev), ref.Numerics(fp8=fp8),
                                       rows_per_pass=rows).cpu()
             for k, x in program["batches"].items()}
 

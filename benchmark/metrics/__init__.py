@@ -14,7 +14,6 @@ import importlib.util
 from dataclasses import dataclass
 from pathlib import Path
 
-from .. import counts
 from ..spec import Cell
 from ..trace import Trace
 
@@ -38,12 +37,21 @@ class Context:
         return self.trace.window_us / 1e6
 
     @property
-    def arch(self) -> dict:
-        return counts.arch_kwargs(self.cell.config)
+    def train(self) -> bool:
+        return self.cell.entry == "train"
 
-    @property
-    def window(self) -> int:
-        return int(self.cell.config["MODEL"]["SWIN"]["WINDOW_SIZE"])
+    def forward_flops(self) -> float:
+        """The model's forward operations on a rank's batch (the cell's
+        architecture's count)."""
+        return self.cell.architecture.forward_flops(self.cell.config, self.cell.batch)
+
+    def attention_ms(self) -> float:
+        """Least ms of the window-attention layer's calls of a step."""
+        return self.cell.architecture.attention_ms(self.cell.config, self.cell.batch, self.train)
+
+    def head_ms(self) -> float:
+        """Least ms of the head's calls of a step."""
+        return self.cell.architecture.head_ms(self.cell.config, self.cell.batch, self.train)
 
     def layer_share(self, span: str, least_ms_a_step: float):
         """% of the layer's least time over its device time in the window."""

@@ -26,6 +26,11 @@ provided the generator is set back to the same state before each block.
 ``Numerics.fp8`` rounds the inputs of every product (linears, the two
 attention products, the convs) to float8 e4m3 with a per-tensor scale, and
 their gradients to e5m2: the benchmark's lower-precision control.
+
+The rest of the architecture's interface (``benchmark/architecture.py``):
+``draw_leaf`` (``weights.py``), ``decayed`` (``reference/train.py``), the
+counts ``forward_flops``, ``attention_ms`` and ``head_ms`` (``counts.py``)
+and ``SPANS``, the port's modules that the benchmark wraps in its ranges.
 """
 
 from __future__ import annotations
@@ -37,7 +42,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..counts import attention_ms_of as attention_ms  # noqa: F401
+from ..counts import forward_flops_of as forward_flops  # noqa: F401
+from ..counts import head_ms_of as head_ms  # noqa: F401
+from ..weights import draw_leaf  # noqa: F401
+from .train import decayed  # noqa: F401
+
 LN_EPS = 1e-5
+
+# the port's module classes whose forward calls the benchmark wraps in a
+# profiler range, and each range's name
+SPANS = {"WindowAttention": "bench.attn", "FinalPatchExpandX4V2": "bench.head"}
 
 
 @dataclass(frozen=True)

@@ -6,10 +6,16 @@ with the Tversky index ``TI = (TP + s) / (TP + a FP + b FN + s)`` where the
 mask has a foreground pixel; the batch mean of those.
 
 AdamW as ``torch.optim.AdamW`` defines it (decoupled decay ``p *= 1 - lr wd``,
-bias-corrected moments, ``eps`` outside the square root), over two groups:
-decayed are the parameters of more than one dimension whose name holds no
-"norm" and that are no bias.  A parameter the loss does not reach (the last
-stage of each cent decoder) takes a zero gradient, so it is decayed.
+bias-corrected moments, ``eps`` outside the square root), over two groups
+that the architecture's ``decayed`` rule splits; the MS-UNet's
+(:func:`decayed`): decayed are the parameters of more than one dimension
+whose name holds no "norm" and that are no bias.  A parameter the loss does
+not reach (the last stage of each cent decoder) takes a zero gradient, so it
+is decayed.
+
+The forward pass, its noise and its numerics are the architecture's
+(``benchmark/architecture.py``): every function here takes the
+architecture as ``ref`` and its sizes as ``arch``.
 
 Noise seeds: a step's micro-batch draws its masks from a generator seeded
 with ``SeedSequence([seed, step, micro] + [rank if rank])``, the data rank
@@ -18,12 +24,10 @@ folded in for ranks other than 0.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
-
-from .msunet import Arch, Net, Noise, Numerics
 
 
 def dynamic_loss_per_image(logits: torch.Tensor, target_u8: torch.Tensor, alpha: float,
@@ -50,9 +54,10 @@ def decayed(name: str, shape: Sequence[int]) -> bool:
 
 class AdamW:
     def __init__(self, params: Dict[str, torch.Tensor], betas, eps: float,
-                 weight_decay: float):
+                 weight_decay: float, decay: Callable):
         self.b1, self.b2 = (float(b) for b in betas)
         self.eps, self.wd = float(eps), float(weight_decay)
+        self.decayed = decay
         self.m = {n: torch.zeros_like(p) for n, p in params.items()}
         self.v = {n: torch.zeros_like(p) for n, p in params.items()}
         self.t = 0
@@ -64,7 +69,7 @@ class AdamW:
         c1, c2 = 1 - self.b1 ** self.t, 1 - self.b2 ** self.t
         for n, p in params.items():
             g = grads[n]
-            if decayed(n, p.shape):
+            if self.decayed(n, p.shape):
                 p.mul_(1 - lr * self.wd)
             self.m[n].mul_(self.b1).add_(g, alpha=1 - self.b1)
             self.v[n].mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
@@ -76,10 +81,9 @@ def images_f32(images_u8: torch.Tensor) -> torch.Tensor:
     return images_u8.float() / 255.0
 
 
-def train_readings(arch: Arch, params: Dict[str, torch.Tensor], batches: List[tuple],
+def train_readings(ref, arch, params: Dict[str, torch.Tensor], batches: List[tuple],
                    *, lr: float, seed: int, ranks: int, loss_abc: tuple, betas, eps: float,
-                   weight_decay: float, numerics: Numerics = Numerics(),
-                   rows_per_pass: int = 1) -> dict:
+                   weight_decay: float, numerics=None, rows_per_pass: int = 1) -> dict:
     """Run ``len(batches)`` train steps from ``params`` (changed in place) and
     return what the benchmark compares: each step's loss, each leaf's norm
     of the first step's gradient, and each leaf's norm of the change after
@@ -92,8 +96,8 @@ def train_readings(arch: Arch, params: Dict[str, torch.Tensor], batches: List[tu
     start = {n: p.detach().clone() for n, p in params.items()}
     for p in params.values():
         p.requires_grad_(True)
-    net = Net(arch, params, numerics)
-    opt = AdamW(params, betas, eps, weight_decay)
+    net = ref.Net(arch, params, ref.Numerics() if numerics is None else numerics)
+    opt = AdamW(params, betas, eps, weight_decay, ref.decayed)
     dev = next(iter(params.values())).device
     losses, grad_norms = [], None
     for step, (images, masks) in enumerate(batches):
@@ -107,7 +111,7 @@ def train_readings(arch: Arch, params: Dict[str, torch.Tensor], batches: List[tu
                 rows = slice(lo, min(lo + rows_per_pass, shard))
                 g.set_state(state)
                 sl = slice(r * shard + rows.start, r * shard + rows.stop)
-                logits = net.forward(images_f32(images[sl]), Noise(g, shard, rows))
+                logits = net.forward(images_f32(images[sl]), ref.Noise(g, shard, rows))
                 per = dynamic_loss_per_image(logits, masks[sl], *loss_abc)
                 loss = per.sum() / (shard * ranks)
                 named = [(n, p) for n, p in params.items()]
@@ -127,12 +131,12 @@ def train_readings(arch: Arch, params: Dict[str, torch.Tensor], batches: List[tu
 
 
 @torch.no_grad()
-def predict_maps(arch: Arch, params: Dict[str, torch.Tensor], images_u8: torch.Tensor,
-                 numerics: Numerics = Numerics(), rows_per_pass: int = 1) -> torch.Tensor:
+def predict_maps(ref, arch, params: Dict[str, torch.Tensor], images_u8: torch.Tensor,
+                 numerics=None, rows_per_pass: int = 1) -> torch.Tensor:
     """``(B, H, W)`` float32 probabilities (sigmoid of the logit) in eval mode."""
-    net = Net(arch, params, numerics)
+    net = ref.Net(arch, params, ref.Numerics() if numerics is None else numerics)
     out = []
     for lo in range(0, images_u8.shape[0], rows_per_pass):
         x = images_f32(images_u8[lo:lo + rows_per_pass])
-        out.append(torch.sigmoid(net.forward(x, Noise(None, x.shape[0]))[..., 0]))
+        out.append(torch.sigmoid(net.forward(x, ref.Noise(None, x.shape[0]))[..., 0]))
     return torch.cat(out)

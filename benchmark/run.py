@@ -148,6 +148,10 @@ def main(argv=None) -> int:
     r0 = parts[0]
     print(f"timing setup_s {r0.setup_s:.3f} window_s {r0.window_s:.3f} steps {r0.steps} "
           f"reference_s {r0.reference_s:.3f}", file=sys.stderr)
+    for p in parts:
+        stages = " ".join(f"{k} {v:.3f}" for k, v in p.stages.items())
+        print(f"rank {p.rank} set-up stages (s from the start): {stages} "
+              f"checked_steps {p.setup_s:.3f}", file=sys.stderr)
     if r0.done:
         tenth = r0.done[-1] / 10
         counts = [sum(1 for t in r0.done if i * tenth <= t < (i + 1) * tenth) for i in range(10)]

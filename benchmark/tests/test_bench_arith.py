@@ -133,3 +133,18 @@ def test_metric_readers_on_a_hand_made_trace():
     assert metrics.reader("refine_head_roofline.train").read(ctx) is None
     assert metrics.reader("nccl_exposed_ms.train").combine([1.0, 3.0]) == 3.0
     assert metrics.reader("mfu.train").combine([1.0, 3.0]) == 2.0
+
+
+def test_the_train_rate_is_read_from_the_untraced_window():
+    from benchmark import metrics
+    from conftest import tiny_cell
+
+    tr = trace.from_events(_events(), steps=2)
+    rate = metrics.reader("img_per_s.train")
+    cell = tiny_cell("train")
+    ctx = metrics.Context(cell=cell, trace=tr, device_trace=tr, params=1000, steps_per_s=2.5)
+    assert rate.read(ctx) == pytest.approx(2.5 * cell.batch)
+    assert rate.read(metrics.Context(cell=cell, trace=tr, device_trace=tr, params=1000)) is None
+    assert rate.read(metrics.Context(cell=tiny_cell("predict"), trace=tr, device_trace=tr,
+                                     params=1000, steps_per_s=2.5)) is None
+    assert rate.combine([1.0, 3.0]) == 4.0

@@ -8,13 +8,12 @@ import time
 import pytest
 
 from benchmark import compare, drive, spec, traffic
-from benchmark.reference.msunet import Arch
 from conftest import tiny_cell
 
 
 def _control_fails(cell, seed, dev) -> dict:
     seeds = drive.Seeds.of(seed)
-    arch = Arch.from_config(cell.config)
+    arch = cell.architecture.arch(cell.config)
     res = drive.run(cell, seed, 2.0 if cell.entry == "predict" else 0.0, False, dev,
                     t_start=time.perf_counter())
     assert all(c["ok"] for c in res.checks.values()), res.checks

@@ -8,10 +8,12 @@ import copy
 import pytest
 import torch
 
-from benchmark import spec, weights
+from benchmark import architecture, spec, weights
 from benchmark.reference import train as ref_train
-from benchmark.reference.msunet import Arch, Net, Noise, param_shapes
+from benchmark.reference.msunet import Arch, Net, Noise, draw_leaf, param_shapes
 from conftest import tiny_cell
+
+MSUNET = architecture.load("msunet")
 
 COMPOSED_F32 = {"COMPUTE_DTYPE": "float32", "SOFTMAX_DTYPE": "float32",
                 "USE_PALLAS_ATTENTION": False, "FUSED_HEAD": False, "FUSED_PATCH": False,
@@ -28,7 +30,7 @@ def _setup(window: int, attn_drop: float = 0.05, drop: float = 0.0):
     conf["TRAIN"]["BASE_LR"] = 1e-3
     conf["TRAIN"]["WEIGHT_DECAY"] = 0.01
     arch = Arch.from_config(conf)
-    w = weights.make(param_shapes(arch), 3, "cpu")
+    w = weights.make(param_shapes(arch), 3, "cpu", draw_leaf)
     model = MSUNet.from_config(spec.port_config(conf, 5), device="cpu")
     weights.load_into(model, w)
     g = torch.Generator().manual_seed(0)
@@ -74,7 +76,7 @@ def test_train_steps_match_composed_path(window, rows, drop):
                      for n, p in model.named_parameters()}
     change = {n: float((p.detach() - w[n]).norm()) for n, p in model.named_parameters()}
     ref = ref_train.train_readings(
-        arch, {k: v.clone() for k, v in w.items()}, batches, lr=1e-3, seed=5, ranks=1,
+        MSUNET, arch, {k: v.clone() for k, v in w.items()}, batches, lr=1e-3, seed=5, ranks=1,
         loss_abc=(0.2, 0.8, 0.45), betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01,
         rows_per_pass=rows)
     assert losses == pytest.approx(ref["loss"], rel=1e-6)
@@ -89,9 +91,9 @@ def test_two_ranks_match_one_process_of_both_shards():
     conf, arch, w, _, images, masks = _setup(4)
     kw = dict(lr=1e-3, seed=5, loss_abc=(0.2, 0.8, 0.45), betas=(0.9, 0.999), eps=1e-8,
               weight_decay=0.01)
-    both = ref_train.train_readings(arch, {k: v.clone() for k, v in w.items()},
+    both = ref_train.train_readings(MSUNET, arch, {k: v.clone() for k, v in w.items()},
                                     [(images, masks)], ranks=2, **kw)
-    a = ref_train.train_readings(arch, {k: v.clone() for k, v in w.items()},
+    a = ref_train.train_readings(MSUNET, arch, {k: v.clone() for k, v in w.items()},
                                  [(images[:2], masks[:2])], ranks=1, **kw)
     # rank 1 folds its rank into the noise seed: run it as rank 1 of 2 alone
     b_noise = ref_train.noise_seed(5, 0, 0, 1)
